@@ -1,0 +1,730 @@
+"""Rasterizer configuration, triangle setup and flat tile binning
+(PyTorch counterpart of ``worldrenderer_tpu/ops/rasterize.py``, the parts
+the fused G-buffer path runs).
+
+Every function here takes the view batch as a written-out leading
+dimension B. Screen-space planes, bboxes and binning follow the JAX
+package expression by expression, so one ``RasterizerConfig`` drives both
+packages and binning lists come out equal. Arithmetic is separately rounded
+fp32 (PyTorch fuses no multiply-add), which keeps the CPU and the card
+bit-identical; XLA on the CPU contracts ``a * b + c`` into FMAs, so the JAX
+reference differs from the port in the last bit of some planes.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .._device import to_int32_sat
+
+__all__ = [
+    "RasterizerConfig", "DEFAULT_CONFIG", "FAST_TPU_CONFIG",
+    "binning_stats", "auto_fast_config",
+]
+
+_W_EPS = 1e-8
+
+
+class RasterizerConfig(NamedTuple):
+    """Static tuning knobs; every field, name and default of the JAX
+    package's ``RasterizerConfig``, so one config drives both packages.
+
+    On this port:
+      * ``dot_precision`` (any value) and ``sel_pack`` mean exact fp32
+        evaluation — there is no matrix unit in the coverage test;
+      * ``kernel_unroll``, ``dma_group``, ``cov_mode``, ``winner_mode`` and
+        ``chunk_slice_mode`` are accepted and ignored (bit-identical knobs
+        of the TPU kernel);
+      * ``bin_subtile > 1`` and ``bin_tiny_px > 0`` raise
+        ``NotImplementedError`` (ROADMAP queue 1 item 7);
+      * ``backend`` takes the JAX package's names; all of them run the
+        same route, chosen by device (see ``_BACKEND_NAMES``).
+    Field meanings are documented on the JAX package's config."""
+
+    tile_h: int = 32
+    tile_w: int = 128
+    chunk: int = 128
+    max_tris_per_tile: Optional[int] = None
+    backend: str = "auto"
+    bin_mode: str = "sort_pairs"
+    bin_span_tiles_y: int = 4
+    bin_span_tiles_x: int = 2
+    bin_huge: int = 256
+    bin_sort_pairs_min_tris: int = 4096
+    bin_med: int = 0
+    bin_med_span_y: int = 8
+    bin_med_span_x: int = 4
+    bin_flat_cap_factor: int = 4
+    dot_precision: str = "highest"
+    chunk_slice_mode: str = "shift"
+    kernel_unroll: int = 1
+    winner_mode: str = "dot"
+    sel_pack: bool = False
+    bin_tiny_px: float = 0.0
+    bin_flat_cap_abs: int = 0
+    bin_small_cap: int = 0
+    bin_tiny_cap: int = 0
+    bin_subtile: int = 1
+    dma_group: int = 1
+    cov_mode: str = "cmp"
+    bin_cull: bool = False
+    backface_cull: int = 0
+
+
+DEFAULT_CONFIG = RasterizerConfig()
+
+# n_tiles * K entry budget for max_tris_per_tile=None (the JAX package's
+# _AUTO_TILE_ENTRY_BUDGET).
+_AUTO_TILE_ENTRY_BUDGET = 16 * 2**20
+
+
+def _auto_cap(t_total: int, n_tiles: int) -> int:
+    return int(
+        min(t_total, max(2048, _AUTO_TILE_ENTRY_BUDGET // max(n_tiles, 1)))
+    )
+
+
+# The JAX package's backend names. Each drives the same route here: the
+# kernel wrapper picks K1 or its plain version by the tensors' device, so
+# "auto" and the Pallas and XLA names all mean "the G-buffer path".
+_BACKEND_NAMES = ("auto", "fused_pallas", "fused_xla", "vpu_pallas", "pallas",
+                  "xla")
+
+
+def _check_ported(config: RasterizerConfig) -> None:
+    """Raise on an unknown backend name and on config values whose code
+    paths are not ported yet."""
+    if config.backend not in _BACKEND_NAMES:
+        raise ValueError(f"unknown backend {config.backend!r}")
+    if config.bin_subtile != 1:
+        raise NotImplementedError(
+            "bin_subtile > 1 (sub-tile row banding) is not ported yet "
+            "(ROADMAP queue 1 item 7)"
+        )
+    if config.bin_tiny_px > 0:
+        raise NotImplementedError(
+            "bin_tiny_px > 0 (the sub-pixel sort path) is not ported yet "
+            "(ROADMAP queue 1 item 7)"
+        )
+
+
+# Tuned fast path: the same values as the JAX package's FAST_TPU_CONFIG.
+FAST_TPU_CONFIG = RasterizerConfig(
+    tile_h=16, max_tris_per_tile=1536, backend="fused_pallas", chunk=128,
+    dot_precision="split_bf16", winner_mode="vpu", sel_pack=True,
+    bin_flat_cap_factor=2, bin_huge=64, bin_span_tiles_y=2,
+    bin_span_tiles_x=2, bin_med=512, bin_cull=True,
+)
+
+
+class _TriSetupT(NamedTuple):
+    """Per-triangle screen-space planes, triangles on the last dim, with a
+    trailing padded slot T (valid=False) that binned id lists pad with.
+
+    ``planes12`` rows are [e0_a, e0_b, e0_g, e1_a, ..., z_a, z_b, z_g]:
+    edge/depth value ``a * px + b * py + g`` with px, py in pixel units
+    (pixel centres at +0.5)."""
+
+    planes12: torch.Tensor  # (B, 12, T+1) f32
+    inv_w: torch.Tensor  # (B, 3, T+1)
+    inv_area: torch.Tensor  # (B, T+1)
+    valid: torch.Tensor  # (B, T+1) bool
+    bbox4: torch.Tensor  # (B, 4, T+1) rows xmin, xmax, ymin, ymax
+
+
+def _clip_corners(pos_clip: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
+    """(B, V, 4) clip positions -> (B, 4, 3, T) vertex-major corners."""
+    t_total = tri.shape[0]
+    v = pos_clip[:, tri.T.reshape(-1)]  # (B, 3T, 4)
+    return v.permute(0, 2, 1).reshape(pos_clip.shape[0], 4, 3, t_total)
+
+
+def _pad_last(a: torch.Tensor, fill=0.0) -> torch.Tensor:
+    pad = torch.full(a.shape[:-1] + (1,), fill, dtype=a.dtype, device=a.device)
+    return torch.cat([a, pad], dim=-1)
+
+
+def _triangle_setup_t(
+    v4: torch.Tensor,
+    width: int,
+    height: int,
+    backface_cull: int = 0,
+) -> _TriSetupT:
+    """Triangle setup for every view. ``v4`` (B, 4, 3, T): clip positions,
+    vertex-major (see :func:`_clip_corners`).
+
+    Near-plane-crossing triangles get clipless homogeneous planes (the
+    cofactors of [x*w; y*w; w]) and a conservative bbox; ``backface_cull``
+    +1 / -1 drops screen-clockwise / counter-clockwise non-crossing
+    triangles (with the negated-Y projection, -1 culls the back faces of
+    outward-CCW meshes)."""
+    nxt = [1, 2, 0]
+    prv = [2, 0, 1]
+    w = v4[:, 3]  # (B, 3, T)
+    front = (w > _W_EPS).all(dim=1)
+    crossing = (w > _W_EPS).any(dim=1) & ~front
+    w_safe = torch.where(w.abs() < _W_EPS, _W_EPS, w)
+    inv_w = 1.0 / w_safe
+    x = (v4[:, 0] * inv_w + 1.0) * (width * 0.5)  # (B, 3, T)
+    y = (v4[:, 1] * inv_w + 1.0) * (height * 0.5)
+    zw = v4[:, 2] * inv_w
+
+    ax = x[:, nxt]
+    ay = y[:, nxt]
+    dx = x[:, prv] - ax
+    dy = y[:, prv] - ay
+    area = (x[:, 1] - x[:, 0]) * (y[:, 2] - y[:, 0]) - (y[:, 1] - y[:, 0]) * (
+        x[:, 2] - x[:, 0]
+    )
+    sgn = torch.where(area < 0, -1.0, 1.0)
+    area_abs = area.abs()
+    valid = front & (area_abs > 0)
+    inv_area = torch.where(valid, 1.0 / torch.clamp(area_abs, min=1e-30), 0.0)
+    dxs = dx * sgn[:, None]
+    dys = dy * sgn[:, None]
+
+    alpha = -dys  # (B, 3, T)
+    beta = dxs
+    gamma = dys * ax - dxs * ay
+    # z/w plane: z_c = sum_i zw_i * inv_area * edge_plane_i_c.
+    zc = zw * inv_area[:, None]
+    z_a = zc[:, 0] * alpha[:, 0] + zc[:, 1] * alpha[:, 1] + zc[:, 2] * alpha[:, 2]
+    z_b = zc[:, 0] * beta[:, 0] + zc[:, 1] * beta[:, 1] + zc[:, 2] * beta[:, 2]
+    z_g = zc[:, 0] * gamma[:, 0] + zc[:, 1] * gamma[:, 1] + zc[:, 2] * gamma[:, 2]
+    bbox4 = torch.stack(
+        [x.amin(dim=1), x.amax(dim=1), y.amin(dim=1), y.amax(dim=1)], dim=1
+    )
+
+    # Clipless homogeneous planes for near-plane-crossing triangles, built
+    # from clip coordinates without dividing by w.
+    hx = (v4[:, 0] + v4[:, 3]) * (width * 0.5)  # x_pixel * w  (B, 3, T)
+    hy = (v4[:, 1] + v4[:, 3]) * (height * 0.5)
+    ha = hy[:, nxt] * w[:, prv] - w[:, nxt] * hy[:, prv]  # cofactor rows
+    hb = w[:, nxt] * hx[:, prv] - hx[:, nxt] * w[:, prv]
+    hg = hx[:, nxt] * hy[:, prv] - hy[:, nxt] * hx[:, prv]
+    det = ha[:, 0] * hx[:, 0] + hb[:, 0] * hy[:, 0] + hg[:, 0] * w[:, 0]
+    hsgn = torch.where(det < 0, -1.0, 1.0)
+    det_abs = det.abs()
+    inv_det = torch.where(det_abs > 0, 1.0 / torch.clamp(det_abs, min=1e-30), 0.0)
+    zq = v4[:, 2] * (hsgn * inv_det)[:, None]
+    hz_a = ha[:, 0] * zq[:, 0] + ha[:, 1] * zq[:, 1] + ha[:, 2] * zq[:, 2]
+    hz_b = hb[:, 0] * zq[:, 0] + hb[:, 1] * zq[:, 1] + hb[:, 2] * zq[:, 2]
+    hz_g = hg[:, 0] * zq[:, 0] + hg[:, 1] * zq[:, 1] + hg[:, 2] * zq[:, 2]
+    # Common positive per-triangle rescale keeps cofactors ~1 (cancels in
+    # every edge ratio; the depth plane above is not rescaled).
+    m = torch.maximum(
+        ha.abs().amax(dim=1),
+        torch.maximum(hb.abs().amax(dim=1), hg.abs().amax(dim=1)),
+    )
+    hsc = (torch.where(m > 0, 1.0 / torch.clamp(m, min=1e-30), 0.0) * hsgn)[:, None]
+    ha, hb, hg = ha * hsc, hb * hsc, hg * hsc
+
+    cr = crossing[:, None]
+    alpha = torch.where(cr, ha, alpha)
+    beta = torch.where(cr, hb, beta)
+    gamma = torch.where(cr, hg, gamma)
+    z_a = torch.where(crossing, hz_a, z_a)
+    z_b = torch.where(crossing, hz_b, z_b)
+    z_g = torch.where(crossing, hz_g, z_g)
+    # inv_w = inv_area = 1 makes the attribute planes the homogeneous
+    # barycentrics e_i / sum_j e_j.
+    inv_w = torch.where(cr, 1.0, inv_w)
+    inv_area = torch.where(crossing, 1.0, inv_area)
+    valid = valid | (crossing & (det_abs > 0))
+    if backface_cull:
+        # Pre-normalization area sign; crossing triangles are exempt.
+        valid = valid & ~(front & (area * backface_cull < 0))
+
+    # Conservative bbox for crossing triangles: project the candidate
+    # points of the w >= eps_b clipped polygon.
+    eps_b = torch.clamp(1e-4 * w.abs().amax(dim=1), min=1e-7)[:, None]
+    v_ok = w > eps_b
+    wj = w[:, nxt]
+    cross_e = (w > eps_b) != (wj > eps_b)
+    dw = wj - w
+    tt = (eps_b - w) / torch.where(dw.abs() < 1e-30, 1e-30, dw)
+    xc = v4[:, 0] + tt * (v4[:, 0][:, nxt] - v4[:, 0])
+    yc = v4[:, 1] + tt * (v4[:, 1][:, nxt] - v4[:, 1])
+    pxc = (xc / eps_b + 1.0) * (width * 0.5)
+    pyc = (yc / eps_b + 1.0) * (height * 0.5)
+
+    def _mm(vals, ok, take_min):
+        big = 3e9
+        if take_min:
+            return torch.where(ok, vals, big).amin(dim=1)
+        return torch.where(ok, vals, -big).amax(dim=1)
+
+    bbox_cross = torch.stack(
+        [
+            torch.minimum(_mm(x, v_ok, True), _mm(pxc, cross_e, True)),
+            torch.maximum(_mm(x, v_ok, False), _mm(pxc, cross_e, False)),
+            torch.minimum(_mm(y, v_ok, True), _mm(pyc, cross_e, True)),
+            torch.maximum(_mm(y, v_ok, False), _mm(pyc, cross_e, False)),
+        ],
+        dim=1,
+    )
+    bbox4 = torch.where(cr, bbox_cross, bbox4)
+
+    planes12 = torch.stack(
+        [
+            alpha[:, 0], beta[:, 0], gamma[:, 0],
+            alpha[:, 1], beta[:, 1], gamma[:, 1],
+            alpha[:, 2], beta[:, 2], gamma[:, 2],
+            z_a, z_b, z_g,
+        ],
+        dim=1,
+    )
+    return _TriSetupT(
+        planes12=_pad_last(planes12),
+        inv_w=_pad_last(inv_w),
+        inv_area=_pad_last(inv_area),
+        valid=_pad_last(valid, False),
+        bbox4=_pad_last(bbox4),
+    )
+
+
+def _bbox_vectors(setup: _TriSetupT):
+    """(xmin, xmax, ymin, ymax), each (B, T), of the live triangle slots."""
+    b = setup.bbox4[:, :, :-1]
+    return b[:, 0], b[:, 1], b[:, 2], b[:, 3]
+
+
+def _bin_classify(
+    setup: _TriSetupT,
+    width: int,
+    height: int,
+    tile_h: int,
+    tile_w: int,
+    span_y_max: int,
+    span_x_max: int,
+    n_med: int,
+    med_span_y: int,
+    med_span_x: int,
+):
+    """bbox -> tile range and size tier, shared by :func:`_bin_flat` and
+    :func:`binning_stats` so the budget guard stays in lockstep with the
+    binning. Returns (tx0, tx1, ty0, ty1, span_x, span_y, on_screen, small,
+    medium, huge), each (B, T); ``small`` is masked by on_screen,
+    ``medium``/``huge`` are not."""
+    n_ty = -(-height // tile_h)
+    n_tx = -(-width // tile_w)
+    xmin, xmax, ymin, ymax = _bbox_vectors(setup)
+
+    def tile_index(v, size, n):
+        # clamp keeps NaN, and the saturating cast sends it to 0 as XLA does
+        return to_int32_sat(torch.clamp(torch.floor(v / size), 0, n - 1))
+
+    tx0 = tile_index(xmin - 0.5, tile_w, n_tx)
+    tx1 = tile_index(xmax + 0.5, tile_w, n_tx)
+    ty0 = tile_index(ymin - 0.5, tile_h, n_ty)
+    ty1 = tile_index(ymax + 0.5, tile_h, n_ty)
+    on_screen = (
+        (xmax >= 0) & (xmin <= width) & (ymax >= 0) & (ymin <= height)
+        & setup.valid[:, :-1]
+    )
+    span_x = tx1 - tx0 + 1
+    span_y = ty1 - ty0 + 1
+    big = (span_x > span_x_max) | (span_y > span_y_max)
+    if n_med > 0:
+        fits_med = (span_x <= med_span_x) & (span_y <= med_span_y)
+        medium = big & fits_med
+        huge = big & ~fits_med
+    else:
+        medium = torch.zeros_like(big)
+        huge = big
+    small = on_screen & ~big
+    return tx0, tx1, ty0, ty1, span_x, span_y, on_screen, small, medium, huge
+
+
+def _tiny_mask(setup: _TriSetupT, tiny_px: float) -> torch.Tensor:
+    """Live triangles whose bbox is smaller than tiny_px in both axes."""
+    xmin, xmax, ymin, ymax = _bbox_vectors(setup)
+    return (
+        setup.valid[:, :-1] & ((xmax - xmin) < tiny_px) & ((ymax - ymin) < tiny_px)
+    )
+
+
+# Relative margin of the dead-entry corner cull (RasterizerConfig.bin_cull);
+# the JAX package's _CULL_MARGIN, whose derivation it documents.
+_CULL_MARGIN = 2e-5
+
+
+def _edge_rows9(setup: _TriSetupT):
+    """The nine edge-plane rows, each (B, T)."""
+    return [setup.planes12[:, k, :-1] for k in range(9)]
+
+
+def _topk_small(prio: torch.Tensor, g: int):
+    """Top ``g`` of each row of (B, T) int32 priorities by g argmax-and-mask
+    passes: values descending, first index on ties (``torch.argmax``
+    returns the first maximum, as ``jnp.argmax`` does). Returns (values,
+    indices), each (B, g)."""
+    p = prio.clone()
+    neg = torch.iinfo(p.dtype).min
+    vals, idx = [], []
+    for _ in range(g):
+        i = torch.argmax(p, dim=1, keepdim=True)
+        vals.append(torch.gather(p, 1, i))
+        idx.append(i)
+        p.scatter_(1, i, neg)
+    return torch.cat(vals, dim=1), torch.cat(idx, dim=1)
+
+
+def _top_tier(prio: torch.Tensor, g: int):
+    """The g highest priorities per row, as the JAX package selects them."""
+    if g <= 64:
+        return _topk_small(prio, g)
+    vals, idx = torch.topk(prio, g, dim=1)
+    return vals, idx
+
+
+def _bin_flat(
+    setup: _TriSetupT,
+    width: int,
+    height: int,
+    tile_h: int,
+    tile_w: int,
+    span_y_max: int,
+    span_x_max: int,
+    n_huge: int,
+    flat_cap_factor: int = 0,
+    n_med: int = 0,
+    med_span_y: int = 8,
+    med_span_x: int = 4,
+    cap_abs: int = 0,
+    small_cap: int = 0,
+    cull_margin: float = 0.0,
+):
+    """Flat binning: ONE sort per view of (tile, tri) keys ``tile*T + tri``.
+
+    Returns (s_tri (B, L) i32 — triangle ids tile-major then ascending,
+    sentinel T in the tail; s_tile (B, L) i32, n_tiles for sentinels;
+    starts (B, n_tiles) i32; counts (B, n_tiles) i32). Each tile's live
+    entries are s_tri[starts : starts + counts].
+
+    Three size tiers as in the JAX package: the small span block per
+    triangle (direct or two-stage emission), up to ``n_med`` medium
+    triangles with a med span block, and up to ``n_huge`` huge ones with
+    one key per overlapped tile. ``cull_margin`` > 0 drops (triangle,
+    tile) keys whose triangle provably covers no pixel centre of the tile.
+    Overflowing budgets drop triangles; :func:`binning_stats` guards them."""
+    n_ty = -(-height // tile_h)
+    n_tx = -(-width // tile_w)
+    n_tiles = n_ty * n_tx
+    bsz = setup.valid.shape[0]
+    t_total = setup.valid.shape[1] - 1
+    dev = setup.valid.device
+
+    (tx0, tx1, ty0, ty1, span_x, span_y, on_screen, small, medium, huge) = (
+        _bin_classify(
+            setup, width, height, tile_h, tile_w, span_y_max, span_x_max,
+            n_med, med_span_y, med_span_x,
+        )
+    )
+    tri_idx = torch.arange(t_total, dtype=torch.int32, device=dev).expand(
+        bsz, t_total
+    )
+    sentinel = n_tiles * t_total
+
+    cm = float(cull_margin)
+    if cm > 0.0:
+        e9 = _edge_rows9(setup)
+        xmin, xmax, ymin, ymax = _bbox_vectors(setup)
+        # Pixel-centre rect of the triangle's own bbox (centres at +0.5).
+        cb = (
+            torch.ceil(xmin - 0.5) + 0.5, torch.floor(xmax - 0.5) + 0.5,
+            torch.ceil(ymin - 0.5) + 0.5, torch.floor(ymax - 0.5) + 0.5,
+        )
+
+    def _dead_at(ty, tx, e9=None, cb=None):
+        """True where a (triangle, tile) entry provably covers no pixel
+        centre: the rect tile ∩ bbox is empty, or the max of some edge
+        function over it is below -margin * magnitude."""
+        bx0, bx1, by0, by1 = cb
+        txf = tx.to(torch.float32)
+        tyf = ty.to(torch.float32)
+        rx0 = torch.maximum(txf * tile_w + 0.5, bx0)
+        rx1 = torch.minimum(txf * tile_w + (tile_w - 0.5), bx1)
+        ry0 = torch.maximum(tyf * tile_h + 0.5, by0)
+        ry1 = torch.minimum(tyf * tile_h + (tile_h - 0.5), by1)
+        dead = (rx1 < rx0) | (ry1 < ry0)
+        rxw = torch.clamp(rx1 - rx0, min=0.0)
+        ryh = torch.clamp(ry1 - ry0, min=0.0)
+        for k in range(3):
+            a, b, g = e9[3 * k], e9[3 * k + 1], e9[3 * k + 2]
+            emax = (
+                a * rx0 + b * ry0 + g
+                + torch.clamp(a * rxw, min=0.0)
+                + torch.clamp(b * ryh, min=0.0)
+            )
+            mag = a.abs() * rx1.abs() + b.abs() * ry1.abs() + g.abs()
+            dead = dead | (emax < -(cm * mag))
+        return dead
+
+    def _key(tile, tri, valid):
+        return torch.where(valid, tile * t_total + tri, sentinel)
+
+    sc = min(small_cap, t_total) if small_cap > 0 else 0
+    keys = []
+    if 0 < sc < t_total:
+        # Two-stage small tier: compact the live small-tier ids with one
+        # sort (ids are unique), then emit span keys for the sc-id prefix.
+        skey = torch.where(small, tri_idx, t_total)
+        sid = torch.sort(skey, dim=1).values[:, :sc]
+        slive = sid < t_total
+        sid_c = torch.clamp(sid, max=t_total - 1)
+        sidx = sid_c.long()
+        sty0, stx0 = torch.gather(ty0, 1, sidx), torch.gather(tx0, 1, sidx)
+        ssy, ssx = torch.gather(span_y, 1, sidx), torch.gather(span_x, 1, sidx)
+        if cm > 0.0:
+            # Dead masks on the full (T,) columns, one bit per span slot,
+            # gathered with the compacted rows (the same booleans as the
+            # direct emission).
+            dead_cols = []
+            for sy in range(span_y_max):
+                for sx in range(span_x_max):
+                    dead_cols.append(
+                        torch.gather(
+                            _dead_at(ty0 + sy, tx0 + sx, e9, cb), 1, sidx
+                        )
+                    )
+        slot = 0
+        for sy in range(span_y_max):
+            for sx in range(span_x_max):
+                tile = torch.clamp(
+                    (sty0 + sy) * n_tx + (stx0 + sx), max=n_tiles
+                )
+                valid = slive & (sx < ssx) & (sy < ssy)
+                if cm > 0.0:
+                    valid = valid & ~dead_cols[slot]
+                slot += 1
+                keys.append(_key(tile, sid_c, valid))
+    else:
+        for sy in range(span_y_max):
+            for sx in range(span_x_max):
+                # Clamp: masked-out lanes still compute tile * T, and an
+                # off-grid tile could overflow the int32 key space.
+                tile = torch.clamp((ty0 + sy) * n_tx + (tx0 + sx), max=n_tiles)
+                valid = small & (sx < span_x) & (sy < span_y)
+                if cm > 0.0:
+                    valid = valid & ~_dead_at(ty0 + sy, tx0 + sx, e9, cb)
+                keys.append(_key(tile, tri_idx, valid))
+
+    def _rows(cols, idx):
+        return [torch.gather(c_, 1, idx) for c_ in cols]
+
+    gm = min(n_med, t_total) if n_med > 0 else 0
+    if gm > 0:
+        prio_m = torch.where(medium & on_screen, t_total - tri_idx, 0)
+        mvals, midx = _top_tier(prio_m, gm)
+        midx = torch.clamp(midx, 0, t_total - 1)
+        mid = midx.to(torch.int32)  # (B, Gm)
+        mvalid = mvals > 0
+        mty0, mtx0, msy, msx = _rows([ty0, tx0, span_y, span_x], midx)
+        if cm > 0.0:
+            mcb = tuple(_rows(cb, midx))
+            me9 = _rows(e9, midx)
+        for sy in range(med_span_y):
+            for sx in range(med_span_x):
+                tile = torch.clamp(
+                    (mty0 + sy) * n_tx + (mtx0 + sx), max=n_tiles
+                )
+                valid = mvalid & (sy < msy) & (sx < msx)
+                if cm > 0.0:
+                    valid = valid & ~_dead_at(mty0 + sy, mtx0 + sx, me9, mcb)
+                keys.append(_key(tile, mid, valid))
+
+    g = min(n_huge, t_total) if n_huge > 0 else 0
+    if g > 0:
+        prio = torch.where(huge & on_screen, t_total - tri_idx, 0)
+        top_vals, hidx = _top_tier(prio, g)
+        hidx = torch.clamp(hidx, 0, t_total - 1)
+        hid = hidx.to(torch.int32)  # (B, G)
+        hvalid = top_vals > 0
+        tiles = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+        tyi = tiles // n_tx
+        txi = tiles % n_tx
+        hx0, hx1, hy0, hy1 = (
+            r[..., None] for r in _rows([tx0, tx1, ty0, ty1], hidx)
+        )
+        hov = (
+            hvalid[..., None]
+            & (txi >= hx0) & (txi <= hx1) & (tyi >= hy0) & (tyi <= hy1)
+        )  # (B, G, n_tiles)
+        if cm > 0.0:
+            hcb = tuple(r[..., None] for r in _rows(cb, hidx))
+            he9 = [r[..., None] for r in _rows(e9, hidx)]
+            hov = hov & ~_dead_at(tyi, txi, he9, hcb)
+        keys.append(_key(tiles, hid[..., None], hov).reshape(bsz, -1))
+
+    # Keys are unique except the interchangeable sentinels, so an unstable
+    # sort gives the same list as the reference's.
+    keys = torch.sort(torch.cat(keys, dim=1), dim=1).values
+    cap = keys.shape[1]
+    if flat_cap_factor > 0:
+        cap = min(cap, flat_cap_factor * t_total)
+    if cap_abs > 0:
+        cap = min(cap, cap_abs)
+    keys = keys[:, :cap]
+    s_tile = torch.div(keys, t_total, rounding_mode="floor")
+    s_tri = torch.remainder(keys, t_total)
+    s_tri = torch.where(s_tile < n_tiles, s_tri, t_total)
+
+    # Segment starts/counts: binary search on the sorted tile ids (left
+    # side, as the reference's searchsorted(side="left")).
+    tile_ids = torch.arange(n_tiles + 1, dtype=torch.int32, device=dev)
+    bounds = torch.searchsorted(
+        s_tile, tile_ids.expand(bsz, n_tiles + 1).contiguous(), out_int32=True
+    )
+    starts = bounds[:, :-1]
+    counts = bounds[:, 1:] - bounds[:, :-1]
+    return s_tri, s_tile, starts, counts
+
+
+def binning_stats(pos, tri, resolution, config: RasterizerConfig = DEFAULT_CONFIG):
+    """Exact per-scene binning-budget diagnostics: the worst view's tier
+    counts, live entries and per-tile maximum beside their configured
+    budgets. ``ok`` is True iff every budget holds, i.e. the flat binning
+    is lossless for this scene and config. pos (B, V, 4) clip positions."""
+    _check_ported(config)
+    height, width = resolution
+    tile_h, tile_w = config.tile_h, config.tile_w
+    n_ty = -(-height // tile_h)
+    n_tx = -(-width // tile_w)
+    t_total = int(tri.shape[0])
+    k_cap = config.max_tris_per_tile or _auto_cap(t_total, n_ty * n_tx)
+
+    pos = pos.to(torch.float32)
+    setup = _triangle_setup_t(
+        _clip_corners(pos, tri), width, height, config.backface_cull
+    )
+    (tx0, tx1, ty0, ty1, span_x, span_y, on, small, medium, huge) = (
+        _bin_classify(
+            setup, width, height, tile_h, tile_w,
+            config.bin_span_tiles_y, config.bin_span_tiles_x,
+            config.bin_med, config.bin_med_span_y, config.bin_med_span_x,
+        )
+    )
+    bsz = pos.shape[0]
+    n_small = small.sum(dim=1)
+    n_tiny = _tiny_mask(setup, 1.0).sum(dim=1)
+    n_med = (medium & on).sum(dim=1)
+    n_huge = (huge & on).sum(dim=1)
+    live = torch.where(on, span_x * span_y, 0).sum(dim=1)
+    # Exact per-tile counts via a 2D difference grid and prefix sums.
+    grid = torch.zeros((bsz, n_ty + 1, n_tx + 1), dtype=torch.int32,
+                       device=pos.device)
+    one = on.to(torch.int32)
+    bidx = torch.arange(bsz, device=pos.device)[:, None].expand_as(tx0)
+    for gy, gx, sign in ((ty0, tx0, 1), (ty0, tx1 + 1, -1),
+                         (ty1 + 1, tx0, -1), (ty1 + 1, tx1 + 1, 1)):
+        grid.index_put_(
+            (bidx.reshape(-1), gy.reshape(-1).long(), gx.reshape(-1).long()),
+            (sign * one).reshape(-1), accumulate=True,
+        )
+    counts = grid.cumsum(dim=1).cumsum(dim=2)[:, :n_ty, :n_tx]
+    max_tile = counts.reshape(bsz, -1).amax(dim=1)
+
+    flat_cap = (
+        config.bin_flat_cap_factor * t_total
+        if config.bin_flat_cap_factor > 0 else 2**62
+    )
+    if config.bin_flat_cap_abs > 0:
+        flat_cap = min(flat_cap, config.bin_flat_cap_abs)
+    stats = {
+        "n_huge": int(n_huge.max()),
+        "huge_budget": int(config.bin_huge),
+        "n_med": int(n_med.max()),
+        "med_budget": int(config.bin_med),
+        "live_entries": int(live.max()),
+        "flat_cap": int(min(flat_cap, 2**62)),
+        "max_per_tile": int(max_tile.max()),
+        "k_cap": int(k_cap),
+        "n_tiny_1px": int(n_tiny.max()),
+        "n_small_tris": int(n_small.max()),
+        "small_cap_budget": int(config.bin_small_cap),
+        "n_tiny_cov": 0,
+        "tiny_cap_budget": int(config.bin_tiny_cap),
+    }
+    small_cap_on = 0 < config.bin_small_cap < t_total
+    stats["ok"] = (
+        stats["n_huge"] <= stats["huge_budget"]
+        and stats["n_med"] <= stats["med_budget"]
+        and stats["live_entries"] <= stats["flat_cap"]
+        and stats["max_per_tile"] <= stats["k_cap"]
+        and (
+            not small_cap_on
+            or stats["n_small_tris"] <= stats["small_cap_budget"]
+        )
+    )
+    return stats
+
+
+def auto_fast_config(
+    pos,
+    tri,
+    resolution,
+    base: RasterizerConfig = FAST_TPU_CONFIG,
+    headroom: float = 2.0,
+    cap_headroom: float = 1.5,
+    extra_probes=(),
+    auto_tiny: bool = True,
+    backface_cull: int = 0,
+) -> RasterizerConfig:
+    """Scene-adaptive binning budgets for the fast path, sized from this
+    scene's :func:`binning_stats` times ``headroom`` (rounded up to powers
+    of two) and validated lossless. pos (B, V, 4) clip positions for the
+    cameras that will be rendered; ``extra_probes`` are further
+    (pos, tri, resolution) the same config must stay lossless for.
+    Returns the same config as the JAX package's ``auto_fast_config``."""
+    if backface_cull:
+        base = base._replace(backface_cull=backface_cull)
+    if auto_tiny and base.bin_tiny_px == 0:
+        # Heavily sub-pixel scenes switch to the sort path, which this port
+        # does not have yet: binning_stats raises for them.
+        t_total = int(tri.shape[0])
+        if t_total >= 300_000:
+            pre = binning_stats(pos, tri, resolution, base)
+            if pre["n_tiny_1px"] >= 0.6 * t_total:
+                base = base._replace(bin_tiny_px=1.0)
+    probe = base._replace(bin_med=max(base.bin_med, 1))
+    probes = [(pos, tri, resolution)] + list(extra_probes)
+    stats_list = [binning_stats(p, t, r, probe) for p, t, r in probes]
+    stats = {
+        k: max(st[k] for st in stats_list)
+        for k in ("n_med", "n_huge", "max_per_tile", "live_entries")
+    }
+
+    def pow2_at_least(n, lo):
+        v = lo
+        while v < n:
+            v *= 2
+        return v
+
+    n_med = stats["n_med"]
+    n_huge = stats["n_huge"]
+    med = 0 if n_med == 0 else pow2_at_least(int(headroom * n_med), 64)
+    huge = pow2_at_least(int(headroom * n_huge) + 8, 16)
+    k_cap = base.max_tris_per_tile
+    if k_cap is not None and stats["max_per_tile"] > k_cap:
+        k_cap = pow2_at_least(int(headroom * stats["max_per_tile"]), k_cap)
+    cap_factor = base.bin_flat_cap_factor
+    if cap_factor > 0:
+        for (_, t_i, _), st in zip(probes, stats_list):
+            t_tot = int(t_i.shape[0])
+            if st["live_entries"] > cap_factor * t_tot:
+                cap_factor = max(
+                    cap_factor,
+                    -(-int(headroom * st["live_entries"]) // t_tot),
+                )
+    cfg = base._replace(
+        bin_med=med, bin_huge=huge, max_tris_per_tile=k_cap,
+        bin_flat_cap_factor=cap_factor,
+    )
+    for p_i, t_i, r_i in probes:
+        final = binning_stats(p_i, t_i, r_i, cfg)
+        if not final["ok"]:
+            raise ValueError(f"auto_fast_config failed to validate: {final}")
+    return cfg

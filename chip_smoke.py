@@ -12,10 +12,16 @@ Phases, one line each; any failure exits nonzero before the last line:
      auto_fast_config budgets) through ``render()`` — with every kernel's
      launch count read around it, its result held against the port's own
      CPU run, views/s and kernel times on the card, and the binning-budget
-     guard (doubled budgets give the same mask, ids and z).
-The second-to-last line is a JSON record of every kernel (launches, error
-against the plain version, times, bound); the last line is the device
-summary, printed only when every phase passed.
+     guard (doubled budgets give the same mask, ids and z);
+  5. slice 2's paths, each with its launch counts read around it and its
+     result held against the port's CPU run: [tiles] workload 1 (the
+     3,968-triangle UV sphere, 6 views at 512²) with the fused_pallas
+     (K2), vpu_pallas (K3) and pallas (K4) backends; [atlas] workload 2,
+     the bake's 2048² UV-atlas pass (K4); [classic] workload 3,
+     ``rasterize`` and ``rasterize_db`` on the flat path (K1 in uv mode).
+The second-to-last line is a JSON record of every kernel (launches on the
+main paths, error against the plain version, times, bound); the last line
+is the device summary, printed only when every phase passed.
 """
 
 from __future__ import annotations
@@ -43,6 +49,10 @@ PEAK_FP32_INSTR = PEAK_FP32_FLOPS / 2
 # (2 multiplies + 2 adds) and six compares (e0, e1, e2 >= 0, -1 <= z <= 1,
 # z < zbest).
 K1_OPS_PER_PAIR = 22
+# fp32 instructions per (entry, pixel) pair in K2's, K3's and K4's scans:
+# four planes of (a multiply, an FMA and an add; they are built with
+# -fmad=false too, but spell the FMA out) and the same six compares.
+TILE_OPS_PER_PAIR = 18
 
 
 def log(phase: str, msg: str) -> None:
@@ -157,6 +167,50 @@ def synthetic_k1_inputs(device, c=128):
     return inputs, (n_vals, th, tw, n_ty, n_tx, c)
 
 
+def synthetic_tile_inputs(device, n_vals=2):
+    """K2, K3 and K4's edge cases, made from a seed: 4 tiles of 16x128, K =
+    300 entries (not a multiple of the 128-entry chunk, so the padding
+    runs), counts (300, 0, 257, 129): an empty tile, a tile whose second
+    chunk holds one live entry and 127 scanned entries past its count, and
+    dead entries (e0 g = -3e38) throughout. Tile 2 holds one full-tile plane
+    at z = -0.99 in entries 5, 9, 130, 200 and 256, with ids that do not
+    ascend: K2 takes entry 9 (least id in the first chunk that reaches the
+    least z), K3 entry 130 (least id over all lane slots), K4 entry 5 (least
+    slot). Returns ``(coeffs (4, 3, (5 + n_vals) * K), coeffs4 (4, 3, 4K),
+    ids (4, K) i32, counts (4,) i32)`` on ``device``."""
+    g = torch.Generator().manual_seed(5)
+    n_tiles, k, th, tw = 4, 300, 16, 128
+    r = 5 + n_vals
+    co = torch.zeros((n_tiles, 3, r, k))
+    ang = torch.rand(n_tiles, 3, k, generator=g) * 6.2832
+    cx = torch.rand(n_tiles, 3, k, generator=g) * tw
+    cy = torch.rand(n_tiles, 3, k, generator=g) * th
+    for e in range(3):
+        a, b = torch.cos(ang[:, e]), torch.sin(ang[:, e])
+        co[:, 0, e], co[:, 1, e] = a, b
+        co[:, 2, e] = -(a * cx[:, e] + b * cy[:, e])
+    co[:, 0, 3] = (torch.rand(n_tiles, k, generator=g) - 0.5) * 1e-3
+    co[:, 1, 3] = (torch.rand(n_tiles, k, generator=g) - 0.5) * 1e-2
+    co[:, 2, 3] = torch.rand(n_tiles, k, generator=g) * 1.6 - 0.8
+    ids = torch.randperm(n_tiles * k, generator=g).reshape(n_tiles, k)
+    ids = torch.sort(ids, dim=1).values.to(torch.int32)
+    co[:, :, 5:] = torch.randn(n_tiles, 3, n_vals, k, generator=g)
+    dead = torch.arange(k) % 7 == 3
+    co[:, :2, 0, dead] = 0.0
+    co[:, 2, 0, dead] = -3.0e38
+    tie = (5, 9, 130, 200, 256)
+    co[2, :, :4, list(tie)] = 0.0
+    co[2, 2, :3, list(tie)] = 1.0  # covers the whole tile
+    co[2, 2, 3, list(tie)] = -0.99  # nearer than every random plane
+    ids[2, list(tie)] = torch.tensor([5050, 5040, 5030, 5060, 5070],
+                                     dtype=torch.int32)
+    co[:, 2, 4] = ids.to(torch.float32)  # the constant id plane
+    counts = torch.tensor([300, 0, 257, 129], dtype=torch.int32)
+    coeffs4 = co[:, :, :4].reshape(n_tiles, 3, 4 * k)
+    out = (co.reshape(n_tiles, 3, r * k), coeffs4, ids, counts)
+    return tuple(t.contiguous().to(device) for t in out)
+
+
 def k1_against_plain(gc, inputs, dims) -> float:
     """Kernel and plain version on the same card inputs; raises unless z,
     id and vals are bitwise equal. Returns the max abs difference."""
@@ -193,6 +247,287 @@ def k1_bound_ms(inputs, dims) -> tuple:
     if ops_ms >= bytes_ms:
         return ops_ms, "operations", live_chunks
     return bytes_ms, "bytes", live_chunks
+
+
+def sphere_scene(pt, device, views=6):
+    """Workload 1: the 3,968-triangle UV sphere uv_sphere_mesh(32, 65) and
+    bench.py:597's orbit (elevation 20, distance 2.7, fovy 40)."""
+    verts, faces, uv = pt.uv_sphere_mesh(32, 65)
+    mesh = pt.mesh_from_arrays(verts, faces, v_tex=uv, t_tex_idx=faces,
+                               device=device)
+    cam = pt.get_camera(elevation_deg=20.0, distance=2.7, fovy_deg=40.0,
+                        num_views=views, near=0.1, far=10.0, device=device)
+    return pt.with_normals(mesh), cam
+
+
+def atlas_clip(mesh):
+    """The UV layout as clip positions (1, V, 4), as baking/uv.py:74-82
+    builds them."""
+    uv = mesh.v_tex * 2.0 - 1.0
+    return torch.cat([uv, torch.zeros_like(uv[:, :1]),
+                      torch.ones_like(uv[:, :1])], dim=1)[None]
+
+
+def tile_bound_ms(counts, tile_h, tile_w, chunk, scan_words, out_words):
+    """Least time the card could take for a K2, K3 or K4 launch on these
+    inputs: the larger of the scanned (entry, pixel) pairs' fp32
+    instructions over the card's fp32 instruction rate and the bytes it
+    must move (each scanned entry's scan words read once, the counts read,
+    each output written once) over the memory rate. Each tile scans
+    ceil(count / c) chunks of c entries."""
+    from worldrenderer_tpu_torch.ops.tensor import chunk_size
+
+    c = chunk_size(chunk)
+    live = int(((counts.long().clamp(min=0) + (c - 1)) // c).sum())
+    p = tile_h * tile_w
+    ops_ms = live * c * p * TILE_OPS_PER_PAIR / PEAK_FP32_INSTR * 1e3
+    n_tiles = counts.numel()
+    nbytes = live * c * scan_words * 4 + n_tiles * 4 + n_tiles * p * out_words * 4
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", live
+    return bytes_ms, "bytes", live
+
+
+def bitwise_against_plain(what, got, want) -> float:
+    """Raises unless every output pair is bitwise equal; returns the max
+    abs difference over finite values."""
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in zip(got, want):
+        fin = torch.isfinite(a.float()) & torch.isfinite(b.float())
+        d = (a.float() - b.float()).abs()[fin]
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} differs from the plain version "
+                                 f"(max abs {err})")
+    return err
+
+
+def reset_counts(gc, zc, rk) -> None:
+    gc.launch_count = 0
+    rk.launch_count = 0
+    for name in zc.launch_counts:
+        zc.launch_counts[name] = 0
+
+
+def read_counts(gc, zc, rk) -> dict:
+    torch.cuda.synchronize()
+    return {"gbuffer_tiles": gc.launch_count,
+            "raster_zid_tiles": rk.launch_count, **zc.launch_counts}
+
+
+def tile_kernel_checks(pt, gb, pr, zc, rk, dev, card) -> dict:
+    """Phase 3 for K2, K3 and K4: each kernel against its plain version on
+    the card, bit for bit, at the slice's shapes (workload 1's per-tile
+    blocks; for K4 also workload 2's 2048² atlas) and on the synthetic edge
+    cases; then each kernel's time, its plain version's and its bound at
+    workload 1's shapes. Returns the kernels' JSON entries (launches still
+    0)."""
+    mesh, cam = sphere_scene(pt, dev)
+    pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+    cfg = pt.DEFAULT_CONFIG
+    zin, zdims = gb._zattr_inputs(pos, mesh.t_pos_idx, mesh.v_nrm, 512, 512, cfg)
+    kin = pr._zid_inputs(pos, mesh.t_pos_idx, 512, 512, cfg)[1]
+    atlas = pr._zid_inputs(atlas_clip(mesh), mesh.t_tex_idx, 2048, 2048, cfg)[1]
+    kdims = (cfg.tile_h, cfg.tile_w, cfg.chunk)
+    co, co4, ids, counts = synthetic_tile_inputs(dev)
+    sdims = (2, 16, 128, 128)
+    entries = {}
+    for name, tag, src, replaces in (
+        ("zattr_tiles", "k2", "zattr_tiles.cu", "gbuffer_pallas.py:290"),
+        ("zattr_tiles_vpu", "k3", "zattr_tiles.cu", "gbuffer_pallas.py:209"),
+    ):
+        kernel = getattr(zc, name)
+        plain = getattr(zc, f"{name}_plain")
+        err = 0.0
+        for case, inputs, dims in (("sphere_512", zin, zdims),
+                                   ("synthetic", (co, counts), sdims)):
+            e = bitwise_against_plain(name, kernel(*inputs, *dims),
+                                      plain(*inputs, *dims))
+            err = max(err, e)
+            log(tag, f"{case}: {int(inputs[0].shape[0])} tiles, bitwise equal "
+                f"to the plain version (max abs err {e})")
+        ms = cuda_ms(lambda: kernel(*zin, *zdims), 20)
+        plain_ms = cuda_ms(lambda: plain(*zin, *zdims), 2)
+        bound, by, live = tile_bound_ms(zin[1], zdims[1], zdims[2], zdims[3],
+                                        13, 2 + zdims[0])
+        log(tag, f"workload 1 ({card}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound:.5f} ms by {by} ({live} live chunks)")
+        entries[name] = dict(
+            name=name, route="cuda", source=f"worldrenderer_tpu_torch/csrc/{src}",
+            replaces=f"worldrenderer_tpu/ops/{replaces}", launches=0,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=None)
+
+    err = 0.0
+    for case, inputs, dims in (("sphere_512", kin, kdims),
+                               ("atlas_2048", atlas, kdims),
+                               ("synthetic", (co4, ids, counts), (16, 128, 128))):
+        coeffs, kids, cnt = inputs
+        z, slot = rk.raster_zid_tiles_plain(coeffs, cnt, *dims)
+        e = bitwise_against_plain("raster_zid_tiles",
+                                  rk.raster_zid_tiles(*inputs, *dims),
+                                  (z, rk.ids_from_slots(slot, kids)))
+        err = max(err, e)
+        log("k4", f"{case}: {int(coeffs.shape[0])} tiles, bitwise equal to the "
+            f"plain version (max abs err {e})")
+    ms = cuda_ms(lambda: rk.raster_zid_tiles(*kin, *kdims), 20)
+    plain_ms = cuda_ms(lambda: rk.raster_zid_tiles_plain(kin[0], kin[2], *kdims), 2)
+    bound, by, live = tile_bound_ms(kin[2], *kdims, 12, 2)
+    atlas_ms = cuda_ms(lambda: rk.raster_zid_tiles(*atlas, *kdims), 20)
+    a_bound, a_by, a_live = tile_bound_ms(atlas[2], *kdims, 12, 2)
+    log("k4", f"workload 1 ({card}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound:.5f} ms by {by} ({live} live chunks); workload 2 atlas "
+        f"{atlas_ms:.4f} ms, bound {a_bound:.5f} ms by {a_by} ({a_live} live "
+        f"chunks)")
+    entries["raster_zid_tiles"] = dict(
+        name="raster_zid_tiles", route="cuda",
+        source="worldrenderer_tpu_torch/csrc/raster_zid_tiles.cu",
+        replaces="worldrenderer_tpu/ops/rasterize_pallas.py:97", launches=0,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=None)
+    return entries
+
+
+def tiles_phase(pt, gc, zc, rk, dev, card) -> dict:
+    """Workload 1, 6 views of the UV sphere at 512², with each backend
+    through the entry point that reaches its kernel: ``render`` (fused
+    branch, K2) for fused_pallas, ``rasterize_gbuffer`` (K3) for
+    vpu_pallas — ``render`` sends vpu_pallas to its classic branch, as the
+    JAX package's does — and ``render`` (classic branch: K4, then
+    interpolate) for pallas. Each run's launch counts, the card against
+    the port's CPU run of views 0 and 3 (phase 4's limits), views/s."""
+    mesh, cam = sphere_scene(pt, dev)
+    cpu_mesh, cpu_cam = mesh.to("cpu"), cam[[0, 3]].to("cpu")
+    pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+    kw = dict(render_attr=False, render_depth=True, render_normal=True)
+    launches = {}
+    for backend, kernel in (("fused_pallas", "zattr_tiles"),
+                            ("vpu_pallas", "zattr_tiles_vpu"),
+                            ("pallas", "raster_zid_tiles")):
+        cfg = pt.RasterizerConfig(backend=backend)
+        if backend == "vpu_pallas":
+            def run(cfg=cfg):
+                return pt.rasterize_gbuffer(pos, mesh.t_pos_idx, mesh.v_nrm,
+                                            (512, 512), cfg, device=dev)
+            ref = pt.rasterize_gbuffer(pos[[0, 3]].cpu(), cpu_mesh.t_pos_idx,
+                                       cpu_mesh.v_nrm, (512, 512), cfg,
+                                       device="cpu")
+            entry = "rasterize_gbuffer"
+        else:
+            def run(cfg=cfg):
+                return pt.render(mesh, cam, 512, 512, raster_config=cfg,
+                                 device=dev, **kw)
+            ref = pt.render(cpu_mesh, cpu_cam, 512, 512, raster_config=cfg,
+                            device="cpu", **kw)
+            entry = "render"
+        reset_counts(gc, zc, rk)
+        out = run()
+        counts = read_counts(gc, zc, rk)
+        launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+        if counts[kernel] < 1:
+            raise AssertionError(f"{entry} with {backend} did not launch {kernel}")
+        mask = out.mask[[0, 3]].cpu()
+        fg = int(ref.mask.sum())
+        both = mask & ref.mask
+        mask_diff = int((mask != ref.mask).sum())
+        if entry == "render":
+            errs = {f: float((getattr(out, f)[[0, 3]].cpu() - getattr(ref, f))[both]
+                             .abs().max()) for f in ("pos", "depth", "normal")}
+            ok = errs["pos"] < 1e-4 and errs["depth"] < 1e-4 and errs["normal"] < 5e-4
+        else:
+            id_diff = int((out.tri_id[[0, 3]].cpu() != ref.tri_id).sum())
+            errs = {"z": float((out.z[[0, 3]].cpu() - ref.z)[both].abs().max()),
+                    "normal numerators / denominator": float(
+                        (out.attr[[0, 3]].cpu() - ref.attr)[both].abs().max()),
+                    "tri_id diff": id_diff}
+            ok = (id_diff <= 1e-4 * fg and errs["z"] < 1e-5
+                  and errs["normal numerators / denominator"] < 5e-4)
+        ok = ok and mask_diff <= 1e-4 * fg and fg > 400_000
+        ms = cuda_ms(run, 10)
+        log("tiles", f"{backend} via {entry}: launches {counts}; vs the port "
+            f"on the CPU (views 0, 3): mask diff {mask_diff} of {fg}, {errs}; "
+            f"{ms:.4f} ms = {len(cam) / (ms / 1e3):.2f} views/s ({card})")
+        if not ok:
+            raise AssertionError(f"workload 1 with {backend}: the card "
+                                 "disagrees with the CPU")
+    return launches
+
+
+def atlas_phase(pt, gc, zc, rk, dev, card) -> int:
+    """Workload 2: the bake's UV-atlas pass (baking/uv.py:99-103) at 2048²:
+    ``rasterize`` of the UV layout, then ``interpolate`` of the world
+    positions. K4's launches, the card against the port's CPU run at 512²,
+    and the pass's time."""
+    mesh, _ = sphere_scene(pt, dev, views=1)
+    clip4 = atlas_clip(mesh)
+
+    def run(size=2048, m=mesh, c=clip4, d=dev):
+        rast = pt.rasterize(c, m.t_tex_idx, (size, size), device=d)
+        return rast, pt.interpolate(m.v_pos[None], rast, m.t_pos_idx, device=d)
+
+    reset_counts(gc, zc, rk)
+    rast, uv_pos = run()
+    counts = read_counts(gc, zc, rk)
+    if counts["raster_zid_tiles"] < 1:
+        raise AssertionError("the atlas pass did not launch K4")
+    cover = float((rast[..., 3] > 0).float().mean())
+    small = run(512)
+    ref = run(512, mesh.to("cpu"), clip4.cpu(), "cpu")
+    id_diff = int((small[0][..., 3].cpu() != ref[0][..., 3]).sum())
+    rast_err = float((small[0].cpu() - ref[0]).abs().max())
+    pos_err = float((small[1].cpu() - ref[1]).abs().max())
+    ms = cuda_ms(run, 5)
+    log("atlas", f"2048²: launches {counts}, coverage {cover:.4f}, finite "
+        f"{bool(torch.isfinite(uv_pos).all())}; 512² vs the port on the CPU: "
+        f"tri_id diff {id_diff}, rast max abs {rast_err}, pos max abs "
+        f"{pos_err}; pass {ms:.4f} ms ({card})")
+    fg = int((ref[0][..., 3] > 0).sum())
+    if not (id_diff <= 1e-4 * fg and rast_err < 5e-4 and pos_err < 1e-4
+            and cover > 0.9 and torch.isfinite(uv_pos).all()):
+        raise AssertionError("the atlas pass disagrees with the CPU")
+    return counts["raster_zid_tiles"]
+
+
+def classic_phase(pt, gc, zc, rk, dev, card) -> int:
+    """Workload 3: ``rasterize`` and ``rasterize_db`` of the headline
+    heightfield (10,082 triangles, 6 views at 512²), the flat path: K1 in
+    uv mode. Launch counts, and the card against the port's CPU run of
+    views 0 and 3."""
+    mesh, cam = headline_scene(pt, dev)
+    pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+    tri = mesh.t_pos_idx
+    k1 = 0
+    outs = {}
+    for name, fn in (("rasterize", pt.rasterize), ("rasterize_db", pt.rasterize_db)):
+        reset_counts(gc, zc, rk)
+        outs[name] = fn(pos, tri, (512, 512), device=dev)
+        counts = read_counts(gc, zc, rk)
+        if counts["gbuffer_tiles"] < 1:
+            raise AssertionError(f"{name} did not launch K1")
+        k1 += counts["gbuffer_tiles"]
+        log("classic", f"{name}: launches {counts}")
+    rast = outs["rasterize"][[0, 3]].cpu()
+    rast_db, db = (t[[0, 3]].cpu() for t in outs["rasterize_db"])
+    ref = pt.rasterize(pos[[0, 3]].cpu(), tri.cpu(), (512, 512), device="cpu")
+    _, ref_db = pt.rasterize_db(pos[[0, 3]].cpu(), tri.cpu(), (512, 512),
+                                device="cpu")
+    fg = int((ref[..., 3] > 0).sum())
+    same = rast[..., 3] == ref[..., 3]
+    id_diff = int((~same).sum())
+    uvz_err = float((rast - ref)[same].abs().max())
+    db_err = float((db - ref_db)[same].abs().max())
+    both_equal = bool(torch.equal(rast, rast_db))
+    ms = cuda_ms(lambda: pt.rasterize(pos, tri, (512, 512), device=dev), 10)
+    log("classic", f"vs the port on the CPU (views 0, 3): tri_id diff {id_diff} "
+        f"of {fg}, rast max abs {uvz_err}, rast_db max abs {db_err}; "
+        f"rasterize_db's rast equals rasterize's: {both_equal}; rasterize "
+        f"{ms:.4f} ms = {len(cam) / (ms / 1e3):.2f} views/s ({card})")
+    if not (id_diff <= 1e-4 * fg and uvz_err < 5e-4 and db_err < 5e-4
+            and both_equal and fg > 100_000):
+        raise AssertionError("classic rasterize disagrees with the CPU")
+    return k1
 
 
 def spread_report(pt, mesh, cam, dev, kw, out, ref) -> None:
@@ -258,6 +593,9 @@ def main() -> int:
     from worldrenderer_tpu_torch.ops import _build
     from worldrenderer_tpu_torch.ops import gbuffer as gb
     from worldrenderer_tpu_torch.ops import gbuffer_cuda as gc
+    from worldrenderer_tpu_torch.ops import raster_zid_cuda as rk
+    from worldrenderer_tpu_torch.ops import rasterize as pr
+    from worldrenderer_tpu_torch.ops import zattr_cuda as zc
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -270,11 +608,13 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    logs = _build.build(["gbuffer_tiles"])
-    log("build", f"gbuffer_tiles built in {time.perf_counter() - t0:.2f} s")
-    for line in logs["gbuffer_tiles"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("build", line.strip())
+    libs = ["gbuffer_tiles", "raster_zid_tiles", "zattr_tiles"]
+    logs = _build.build(libs)  # one nvcc per source, all started together
+    log("build", f"{', '.join(libs)} built in {time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        for line in logs[lib].splitlines():
+            if "registers" in line or "spill" in line:
+                log("build", f"{lib}: {line.strip()}")
 
     # Phase 3: K1 against its plain version on the card.
     mesh, cam = headline_scene(pt, dev)
@@ -284,22 +624,28 @@ def main() -> int:
     assert big_mesh.num_faces == 69_938
     big_k1, big_dims = k1_inputs_for(pt, gb, big_mesh, big_cam, 1024)[0]
     syn_k1, syn_dims = synthetic_k1_inputs(dev)
+    # Workload 3's K1 inputs: classic rasterize's uv mode at DEFAULT_CONFIG
+    # (tiles of 32x128, so the 16-pixels-per-thread instance).
+    uv_k1, uv_dims = gb._k1_inputs(
+        pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx), mesh.t_pos_idx,
+        None, 512, 512, pt.DEFAULT_CONFIG, uv_mode=True)
     max_err = 0.0
     for name, inputs, dims in (("headline", head_k1, head_dims),
                                ("grid188_1024", big_k1, big_dims),
-                               ("synthetic", syn_k1, syn_dims)):
+                               ("synthetic", syn_k1, syn_dims),
+                               ("classic_uv", uv_k1, uv_dims)):
         err = k1_against_plain(gc, inputs, dims)
         max_err = max(max_err, err)
         log("k1", f"{name}: live chunks {int(inputs[3].sum())}, bitwise "
             f"equal to the plain version (max abs err {err})")
+    tile_entries = tile_kernel_checks(pt, gb, pr, zc, rk, dev, card)
 
     # Phase 4: the main path through render(), launch counts around it.
     kw = dict(render_attr=False, render_depth=False, render_normal=True,
               raster_config=head_cfg)
-    gc.launch_count = 0
+    reset_counts(gc, zc, rk)
     out = pt.render(mesh, cam, 512, 512, device=dev, **kw)
-    torch.cuda.synchronize()
-    launches = gc.launch_count
+    launches = read_counts(gc, zc, rk)["gbuffer_tiles"]
     if launches < 1:
         raise AssertionError("render() did not launch K1")
     log("main", f"render(): K1 launches {launches}")
@@ -374,6 +720,14 @@ def main() -> int:
     if guard["mask_diff"] or guard["id_diff"] or guard["z_diff"] >= 1e-6:
         raise AssertionError(f"binning budgets truncate triangle lists: {guard}")
 
+    # Slice 2's paths, each driven with every count set to 0 just before it
+    # and read just after.
+    tile_launches = tiles_phase(pt, gc, zc, rk, dev, card)
+    tile_launches["raster_zid_tiles"] += atlas_phase(pt, gc, zc, rk, dev, card)
+    launches += classic_phase(pt, gc, zc, rk, dev, card)
+    for name, entry in tile_entries.items():
+        entry["launches"] = tile_launches[name]
+
     print(card)
     print(json.dumps({"kernels": [{
         "name": "gbuffer_tiles",
@@ -387,7 +741,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }] + list(tile_entries.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -288,17 +288,20 @@ def test_unported_options_raise():
     for kw in (dict(), dict(render_attr=False, ssaa=2),
                dict(render_attr=False, view_chunk=1),
                dict(render_attr=False, render_tangent=True),
+               dict(render_attr=False, antialias_attr=True),
                dict(render_attr=False,
                     raster_config=pt.RasterizerConfig(bin_subtile=2)),
                dict(render_attr=False,
-                    raster_config=pt.RasterizerConfig(bin_tiny_px=1.0)),
-               dict(render_attr=False,
-                    raster_config=pt.RasterizerConfig(backend="xla"))):
+                    raster_config=pt.RasterizerConfig(bin_tiny_px=1.0))):
         with pytest.raises(NotImplementedError):
             pt.render(mesh, cam, 32, 32, device="cpu", **kw)
+    # below bin_sort_pairs_min_tris, and on the classic branch
     small = pt.mesh_from_arrays(*pt.icosphere(1), device="cpu")
-    with pytest.raises(NotImplementedError):  # below bin_sort_pairs_min_tris
-        pt.render(small, cam, 32, 32, render_attr=False, device="cpu")
+    for cfg in (pt.RasterizerConfig(bin_subtile=2),
+                pt.RasterizerConfig(backend="xla", bin_tiny_px=1.0)):
+        with pytest.raises(NotImplementedError):
+            pt.render(small, cam, 32, 32, render_attr=False, raster_config=cfg,
+                      device="cpu")
 
 
 def _imports(path: Path):

@@ -2,9 +2,9 @@
 
 Same public API and the same ``RasterizerConfig`` as the JAX package, so
 one config drives both. Entry points run on the card (``cuda``) unless the
-caller passes ``device="cpu"``; the fused G-buffer tile pass is a
-hand-written CUDA kernel for Hopper (``csrc/gbuffer_tiles.cu``) whose plain
-PyTorch version runs on the CPU.
+caller passes ``device="cpu"``; the rasterizer's tile passes are
+hand-written CUDA kernels for Hopper (``csrc/``) whose plain PyTorch
+versions run on the CPU.
 """
 
 from .camera import (
@@ -28,12 +28,15 @@ from .mesh import (
     with_normals,
 )
 from .ops.gbuffer import GBufferOutput, rasterize_gbuffer
+from .ops.interpolate import interpolate
 from .ops.rasterize import (
     DEFAULT_CONFIG,
     FAST_TPU_CONFIG,
     RasterizerConfig,
     auto_fast_config,
     binning_stats,
+    rasterize,
+    rasterize_db,
 )
 from .render import (
     DepthControlNetNormalization,
@@ -51,7 +54,8 @@ __all__ = [
     "camera_from_arrays", "config_from_dict", "mesh_from_arrays",
     "TexturedMesh", "compute_vertex_normals", "icosphere", "make_grid_mesh",
     "uv_sphere_mesh", "with_normals",
-    "GBufferOutput", "rasterize_gbuffer",
+    "GBufferOutput", "rasterize_gbuffer", "interpolate", "rasterize",
+    "rasterize_db",
     "DEFAULT_CONFIG", "FAST_TPU_CONFIG", "RasterizerConfig",
     "auto_fast_config", "binning_stats",
     "DepthControlNetNormalization", "RenderOutput", "SimpleNormalization",

@@ -22,25 +22,21 @@
 // pixels' best z and winner entry in registers, and only the winner's value
 // planes are read at the end.
 //
-// Bits: planes evaluate as ((a*lx) + (b*ly)) + g with separately rounded
-// __fmul_rn / __fadd_rn, the order of the plain PyTorch version
+// Bits: planes evaluate as tile_scan::plane_sep, ((a*lx) + (b*ly)) + g with
+// separately rounded __fmul_rn / __fadd_rn, the order of the plain PyTorch version
 // (ops/gbuffer_cuda.py gbuffer_tiles_plain), so the two agree bit for bit.
 // The scan over entries in list order with a strict z < zbest keeps the
 // first winner on z ties — the TPU kernel's tie rule (chunk-local first
 // hit, strict merge across chunks).
 
-#include <cuda_runtime.h>
+#include "tile_scan.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace tile_scan;
+
 constexpr int kGeoRows = 12;
 constexpr int kBackgroundId = 1 << 30;
-
-__device__ __forceinline__ float plane_at(float a, float b, float g, float lx,
-                                          float ly) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, lx), __fmul_rn(b, ly)), g);
-}
 
 // PPT pixels per thread: pixel p = threadIdx.x + k * kThreads of the tile,
 // row-major (x = p % tile_w), so neighbouring threads write neighbouring
@@ -73,21 +69,16 @@ __global__ void __launch_bounds__(kThreads)
   int win[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    lx[k] = static_cast<float>(p % tile_w) + 0.5f;
-    ly[k] = static_cast<float>(p / tile_w) + 0.5f;
-    zbest[k] = __int_as_float(0x7f800000);  // +inf
+    pixel_centre(threadIdx.x + k * kThreads, tile_w, lx[k], ly[k]);
+    zbest[k] = inf_f();
     win[k] = -1;
   }
 
   for (int ci = 0; ci < nch; ++ci) {
     const int e_base = (base + ci) * c;
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = threadIdx.x; i < kGeoRows * c; i += kThreads) {
-      const int row = i / c;
-      geo[i] = rec[static_cast<size_t>(row) * l_cap + e_base + (i - row * c)];
-    }
-    __syncthreads();
+    stage_chunk(geo, kGeoRows, c, [&](int row, int j) {
+      return rec[static_cast<size_t>(row) * l_cap + e_base + j];
+    });
     for (int j = 0; j < c; ++j) {
       const float e0a = geo[0 * c + j], e0b = geo[1 * c + j], e0g = geo[2 * c + j];
       const float e1a = geo[3 * c + j], e1b = geo[4 * c + j], e1g = geo[5 * c + j];
@@ -95,13 +86,11 @@ __global__ void __launch_bounds__(kThreads)
       const float za = geo[9 * c + j], zb = geo[10 * c + j], zg = geo[11 * c + j];
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float e0 = plane_at(e0a, e0b, e0g, lx[k], ly[k]);
-        const float e1 = plane_at(e1a, e1b, e1g, lx[k], ly[k]);
-        const float e2 = plane_at(e2a, e2b, e2g, lx[k], ly[k]);
-        const float z = plane_at(za, zb, zg, lx[k], ly[k]);
-        const bool cov = e0 >= 0.f && e1 >= 0.f && e2 >= 0.f && z >= -1.f &&
-                         z <= 1.f;
-        if (cov && z < zbest[k]) {
+        const float z = plane_sep(za, zb, zg, lx[k], ly[k]);
+        if (covers(plane_sep(e0a, e0b, e0g, lx[k], ly[k]),
+                   plane_sep(e1a, e1b, e1g, lx[k], ly[k]),
+                   plane_sep(e2a, e2b, e2g, lx[k], ly[k]), z) &&
+            z < zbest[k]) {
           zbest[k] = z;
           win[k] = e_base + j;
         }
@@ -121,31 +110,19 @@ __global__ void __launch_bounds__(kThreads)
     if (p >= p_tile) continue;
     const size_t o = static_cast<size_t>(oy + p / tile_w) * pw + ox + p % tile_w;
     const int w = win[k];
-    z_out[b * img + o] = w >= 0 ? zbest[k] : __int_as_float(0x7f800000);
+    z_out[b * img + o] = w >= 0 ? zbest[k] : inf_f();
     id_out[b * img + o] = w >= 0 ? ids[static_cast<size_t>(b) * l_cap + w]
                                  : kBackgroundId;
     for (int v = 0; v < n_vals; ++v) {
       float val = 0.f;
       if (w >= 0) {
         const float* r = rec + static_cast<size_t>(kGeoRows + 3 * v) * l_cap + w;
-        val = plane_at(r[0], r[l_cap], r[2 * static_cast<size_t>(l_cap)], lx[k],
-                       ly[k]);
+        val = plane_sep(r[0], r[l_cap], r[2 * static_cast<size_t>(l_cap)], lx[k],
+                        ly[k]);
       }
       v_out[(static_cast<size_t>(b) * n_vals + v) * img + o] = val;
     }
   }
-}
-
-template <int PPT>
-cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
-                   const float* recs, const int* ids, const int* start_chunks,
-                   const int* n_chunks, float* z_out, int* id_out, float* v_out,
-                   int n_rows, int l_cap, int n_ty, int n_tx, int tile_h,
-                   int tile_w, int n_vals, int c) {
-  gbuffer_tiles_kernel<PPT><<<grid, kThreads, smem, stream>>>(
-      recs, ids, start_chunks, n_chunks, z_out, id_out, v_out, n_rows, l_cap,
-      n_ty, n_tx, tile_h, tile_w, n_vals, c);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -161,10 +138,10 @@ extern "C" int gbuffer_tiles_launch(const void* recs, const void* ids,
                                     int n_rows, int l_cap, int n_ty, int n_tx,
                                     int tile_h, int tile_w, int n_vals, int c,
                                     void* stream) {
-  const int ppt = (tile_h * tile_w + kThreads - 1) / kThreads;
   const size_t smem = static_cast<size_t>(kGeoRows) * c * sizeof(float);
+  const int ppt = tile_h > 0 && tile_w > 0 ? pixels_per_thread(tile_h * tile_w) : 0;
   if (bsz <= 0 || n_ty <= 0 || n_tx <= 0 || c <= 0 || l_cap % c != 0 ||
-      n_rows != kGeoRows + 3 * n_vals || smem > 48 * 1024 || ppt > 16) {
+      n_rows != kGeoRows + 3 * n_vals || smem > 48 * 1024 || ppt == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(n_ty * n_tx, bsz);
@@ -176,22 +153,11 @@ extern "C" int gbuffer_tiles_launch(const void* recs, const void* ids,
   auto* zo = static_cast<float*>(z_out);
   auto* io = static_cast<int*>(id_out);
   auto* vo = static_cast<float*>(v_out);
-  cudaError_t err;
-  if (ppt <= 1) {
-    err = launch<1>(grid, smem, s, r, i, sc, nc, zo, io, vo, n_rows, l_cap,
-                    n_ty, n_tx, tile_h, tile_w, n_vals, c);
-  } else if (ppt <= 2) {
-    err = launch<2>(grid, smem, s, r, i, sc, nc, zo, io, vo, n_rows, l_cap,
-                    n_ty, n_tx, tile_h, tile_w, n_vals, c);
-  } else if (ppt <= 4) {
-    err = launch<4>(grid, smem, s, r, i, sc, nc, zo, io, vo, n_rows, l_cap,
-                    n_ty, n_tx, tile_h, tile_w, n_vals, c);
-  } else if (ppt <= 8) {
-    err = launch<8>(grid, smem, s, r, i, sc, nc, zo, io, vo, n_rows, l_cap,
-                    n_ty, n_tx, tile_h, tile_w, n_vals, c);
-  } else {
-    err = launch<16>(grid, smem, s, r, i, sc, nc, zo, io, vo, n_rows, l_cap,
-                     n_ty, n_tx, tile_h, tile_w, n_vals, c);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch_ppt(ppt, [&](auto ppt_c) {
+    constexpr int kPpt = decltype(ppt_c)::value;
+    gbuffer_tiles_kernel<kPpt><<<grid, kThreads, smem, s>>>(
+        r, i, sc, nc, zo, io, vo, n_rows, l_cap, n_ty, n_tx, tile_h, tile_w,
+        n_vals, c);
+    return cudaGetLastError();
+  }));
 }

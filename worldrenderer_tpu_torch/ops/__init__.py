@@ -1,3 +1,4 @@
-"""Rasterizer ops of the PyTorch port: setup and binning
-(``rasterize``), the fused G-buffer path (``gbuffer``) and its CUDA kernel
-(``gbuffer_cuda``, built by ``_build``)."""
+"""Rasterizer ops of the PyTorch port: setup, binning and the classic API
+(``rasterize``, ``interpolate``), the fused G-buffer paths (``gbuffer``)
+and their CUDA kernels (``gbuffer_cuda``, ``zattr_cuda``,
+``raster_zid_cuda``, built by ``_build``)."""

@@ -1,14 +1,17 @@
 """Fused G-buffer rasterization: attributes as screen-affine planes
-(PyTorch counterpart of ``worldrenderer_tpu/ops/gbuffer.py``, its flat
-path).
+(PyTorch counterpart of ``worldrenderer_tpu/ops/gbuffer.py``).
 
 Perspective-correct interpolation of a per-vertex attribute is a ratio of
 two screen-affine planes, a(p) = [sum_i e_i(p) invw_i a_i] /
 [sum_i e_i(p) invw_i]; so coverage, depth, attribute numerators and the
-shared denominator are all plane evaluations. The prep here bins triangles
-into tiles, lays each tile's entries out as 128-aligned chunks of rebased
-plane records, and kernel K1 (``gbuffer_cuda.py``) picks every pixel's
-winner and evaluates its planes.
+shared denominator are all plane evaluations. Two paths:
+
+* the flat path (at least ``bin_sort_pairs_min_tris`` triangles): sorted
+  flat binning, each tile's entries laid out as 128-aligned chunks of
+  rebased plane records, and kernel K1 (``gbuffer_cuda.py``);
+* the per-tile path (below it): the classic setup, dense per-tile binning,
+  a (3, R*K) block of rebased plane rows per tile with a constant id plane,
+  and kernel K2, or K3 for ``backend="vpu_pallas"`` (``zattr_cuda.py``).
 """
 
 from __future__ import annotations
@@ -25,25 +28,51 @@ from .rasterize import (
     RasterizerConfig,
     _auto_cap,
     _bin_flat,
+    _binned_setup,
     _check_ported,
     _clip_corners,
     _CULL_MARGIN,
+    _detile,
+    _gather_tile_rows,
     _triangle_setup_t,
+    _TriSetup,
     _TriSetupT,
+    _use_flat,
 )
+from .tensor import BIG_NEG, chunk_size, fma_dot3
+from .zattr_cuda import zattr_tiles, zattr_tiles_vpu
 
 __all__ = ["rasterize_gbuffer", "GBufferOutput"]
-
-# e0 constant of a dead record: swallows any tile-origin rebase exactly in
-# f32, so the entry never covers a pixel.
-_BIG_NEG = -3.0e38
-
 
 class GBufferOutput(NamedTuple):
     mask: torch.Tensor  # (B, H, W) bool
     z: torch.Tensor  # (B, H, W) f32 NDC depth (0 where background)
     tri_id: torch.Tensor  # (B, H, W) i32 triangle_id + 1, 0 = background
     attr: Optional[torch.Tensor]  # (B, H, W, A) perspective-correct attrs
+
+
+def _uv_corner_attrs_t(t_total: int, device=None) -> torch.Tensor:
+    """Per-corner one-hot attributes (2, 3, T) whose perspective-correct
+    interpolation is the nvdiffrast (u, v): the barycentrics of local
+    vertices 1 and 2."""
+    eye = torch.tensor([[0.0, 1.0, 0.0], [0.0, 0.0, 1.0]], device=device)
+    return eye[:, :, None].expand(2, 3, t_total)
+
+
+def _attr_planes(setup: _TriSetup, a: torch.Tensor) -> torch.Tensor:
+    """Numerator planes of each attribute channel plus the shared
+    denominator plane in the classic layout: (B, T+1, A+1, 3), denominator
+    last. ``a`` (T, 3, A) per-corner values. Rounded as the reference's
+    fp32 ``einsum`` contractions at ``Precision.HIGHEST`` round on the CPU:
+    q_i = inv_w_i * e_i first, then ``fma(a2, q2, fma(a1, q1, a0 * q0))``,
+    and the denominator ``fma(w2, e2, fma(w1, e1, w0 * e0))``."""
+    inv_w = setup.inv_w[:, :-1]  # (B, T, 3)
+    ep = setup.planes[:, :-1, :3, :]  # (B, T, 3 edges, 3 coefs)
+    q = inv_w[..., None] * ep  # (B, T, 3, 3)
+    num = fma_dot3(a[None, :, :, :, None], q[:, :, :, None, :], 2)  # (B, T, A, 3)
+    den = fma_dot3(inv_w[..., None], ep, 2)  # (B, T, 3)
+    planes = torch.cat([num, den[:, :, None]], dim=2)
+    return torch.cat([planes, planes.new_zeros(planes[:, :1].shape)], dim=1)
 
 
 def _attr_planes_t(setup: _TriSetupT, a3: torch.Tensor) -> torch.Tensor:
@@ -119,12 +148,12 @@ def _flat_chunks(
     flat_ids = flat_ids.reshape(bsz, l_cap)
 
     # Validity baked into a record copy of e0: dead entries get a = b = 0
-    # and g = _BIG_NEG, so they cannot cover after the rebase either.
+    # and g = BIG_NEG, so they cannot cover after the rebase either.
     p12 = setup.planes12
     valid = setup.valid[:, None]
     e0 = torch.cat(
         [torch.where(valid, p12[:, 0:2], 0.0),
-         torch.where(valid, p12[:, 2:3], _BIG_NEG)],
+         torch.where(valid, p12[:, 2:3], BIG_NEG)],
         dim=1,
     )
     table = torch.cat([e0, p12[:, 3:], attr_rows], dim=1)
@@ -164,19 +193,24 @@ def _flat_chunks_finish(
 
 
 def _k1_inputs(pos, tri, v_attr, height, width, config, pos_world=None,
-               mvp=None):
+               mvp=None, tri_attr=None, uv_mode=False):
     """Triangle setup, binning and chunk prep for a batch of views: K1's
     inputs ``(recs, flat_ids, start_chunks, n_chunks)`` and its static
-    arguments ``(n_vals, tile_h, tile_w, n_ty, n_tx, c)``."""
+    arguments ``(n_vals, tile_h, tile_w, n_ty, n_tx, c)``. ``tri_attr``
+    (T, 3): corner indices into ``v_attr`` where its topology differs from
+    ``tri``; ``uv_mode``: the attributes are the (u, v) barycentrics."""
     tile_h, tile_w = config.tile_h, config.tile_w
     n_ty, n_tx = -(-height // tile_h), -(-width // tile_w)
     n_tiles = n_ty * n_tx
     t_total = tri.shape[0]
     bsz = pos.shape[0]
-    n_attr = 0 if v_attr is None else v_attr.shape[-1]
+    if uv_mode:
+        n_attr = 2
+    else:
+        n_attr = 0 if v_attr is None else v_attr.shape[-1]
     nv = n_attr + 1 if n_attr > 0 else 1
 
-    c = max(128, (config.chunk // 128) * 128)
+    c = chunk_size(config.chunk)
     k_cap = min(config.max_tris_per_tile or _auto_cap(t_total, n_tiles), t_total)
     span = config.bin_span_tiles_y * config.bin_span_tiles_x
     l_keys = t_total * span + (
@@ -216,8 +250,11 @@ def _k1_inputs(pos, tri, v_attr, height, width, config, pos_world=None,
         small_cap=config.bin_small_cap,
         cull_margin=_CULL_MARGIN if config.bin_cull else 0.0,
     )
-    if v_attr is not None:
-        a3 = v_attr[vmajor].T.reshape(n_attr, 3, t_total)
+    if uv_mode:
+        attr_rows = _attr_planes_t(setup, _uv_corner_attrs_t(t_total, pos.device))
+    elif v_attr is not None:
+        am = vmajor if tri_attr is None else tri_attr.T.reshape(-1)
+        a3 = v_attr[am].T.reshape(n_attr, 3, t_total)
         attr_rows = _attr_planes_t(setup, a3)
     else:
         attr_rows = setup.planes12.new_zeros(bsz, 3, t_total + 1)
@@ -232,13 +269,24 @@ def _k1_inputs(pos, tri, v_attr, height, width, config, pos_world=None,
                                                        n_ty, n_tx, c)
 
 
+def _attr_from_vals(vals, mask):
+    """(B, A+1, H, W) numerators and denominator -> (B, H, W, A) attributes,
+    0 where ``mask`` is False."""
+    den = vals[:, -1]
+    den = torch.where(den.abs() < 1e-20, 1e-20, den)
+    attr = torch.where(mask[:, None], vals[:, :-1] / den[:, None], 0.0)
+    return attr.permute(0, 2, 3, 1)
+
+
 def _gbuffer_dma_batched(
     pos, tri, v_attr, height, width, config, pos_world=None, mvp=None,
+    tri_attr=None, uv_mode=False,
 ):
     """The flat path for a batch of views: chunk prep, then ONE K1 launch
     over the (views, tiles) grid."""
     inputs, dims = _k1_inputs(pos, tri, v_attr, height, width, config,
-                              pos_world=pos_world, mvp=mvp)
+                              pos_world=pos_world, mvp=mvp, tri_attr=tri_attr,
+                              uv_mode=uv_mode)
     z, idm, vals = gbuffer_tiles(*inputs, *dims)
     z = z[:, :height, :width]
     idm = idm[:, :height, :width]
@@ -247,13 +295,70 @@ def _gbuffer_dma_batched(
     tri_id = torch.where(mask, idm + 1, 0)
 
     attr = None
-    if v_attr is not None:
-        vals = vals[:, :, :height, :width]
-        den = vals[:, -1]
-        den = torch.where(den.abs() < 1e-20, 1e-20, den)
-        attr = torch.where(mask[:, None], vals[:, :-1] / den[:, None], 0.0)
-        attr = attr.permute(0, 2, 3, 1)
+    if v_attr is not None or uv_mode:
+        attr = _attr_from_vals(vals[:, :, :height, :width], mask)
     return mask, z, tri_id, attr
+
+
+def _zattr_inputs(pos, tri, v_attr, height, width, config, tri_attr=None):
+    """Classic setup, a constant id plane (a = b = 0, g = triangle id)
+    beside the attribute planes, dense binning and the tile row gather for
+    a batch of views: K2's and K3's inputs ``(coeffs, counts)`` and their
+    static arguments ``(n_vals, tile_h, tile_w, chunk)``."""
+    bsz, t_total = pos.shape[0], tri.shape[0]
+    dev = pos.device
+    n_attr = 0 if v_attr is None else v_attr.shape[-1]
+    setup, ids, counts, origins = _binned_setup(pos, tri, height, width,
+                                                config)
+    id_plane = torch.zeros((bsz, t_total + 1, 1, 3), device=dev)
+    id_plane[..., 0, 2] = torch.arange(t_total + 1, dtype=torch.float32,
+                                       device=dev)
+    if v_attr is not None:
+        attr_planes = _attr_planes(setup, v_attr[tri if tri_attr is None
+                                                 else tri_attr])
+    else:
+        attr_planes = torch.zeros((bsz, t_total + 1, 1, 3), device=dev)
+    all_planes = torch.cat([setup.planes, id_plane, attr_planes], dim=2)
+    coeffs = _gather_tile_rows(all_planes, setup.valid, ids, origins)
+    return (coeffs, counts.reshape(-1)), (n_attr + 1, config.tile_h,
+                                          config.tile_w, config.chunk)
+
+
+def _gbuffer_single(pos, tri, v_attr, height, width, config, tri_attr=None):
+    """The per-tile path for a batch of views (the JAX package's per-view
+    ``_gbuffer_single`` below the flat path): the tile rows of
+    :func:`_zattr_inputs`, then ONE launch of K2 — or K3 for
+    ``backend="vpu_pallas"`` — over every (view, tile)."""
+    tile_h, tile_w = config.tile_h, config.tile_w
+    n_ty, n_tx = -(-height // tile_h), -(-width // tile_w)
+    bsz = pos.shape[0]
+    inputs, dims = _zattr_inputs(pos, tri, v_attr, height, width, config,
+                                 tri_attr=tri_attr)
+    kernel = zattr_tiles_vpu if config.backend == "vpu_pallas" else zattr_tiles
+    z_t, id_t, v_t = kernel(*inputs, *dims)
+    z = _detile(z_t, bsz, n_ty, n_tx, height, width)
+    tid = _detile(id_t, bsz, n_ty, n_tx, height, width)
+    mask = torch.isfinite(z) & (tid < BACKGROUND_ID)
+    z = torch.where(mask, z, 0.0)
+    tri_id = torch.where(mask, tid.to(torch.int32) + 1, 0)
+    attr = None
+    if v_attr is not None:
+        attr = _attr_from_vals(_detile(v_t, bsz, n_ty, n_tx, height, width),
+                               mask)
+    return mask, z, tri_id, attr
+
+
+def _gbuffer_core(pos, tri, v_attr, height, width, config, tri_attr=None,
+                  pos_world=None, mvp=None):
+    """The flat path at scale, else the per-tile path."""
+    n_tiles = (-(-height // config.tile_h)) * (-(-width // config.tile_w))
+    if _use_flat(config, tri.shape[0], n_tiles):
+        return _gbuffer_dma_batched(
+            pos, tri, v_attr, height, width, config, pos_world=pos_world,
+            mvp=mvp, tri_attr=tri_attr,
+        )
+    return _gbuffer_single(pos, tri, v_attr, height, width, config,
+                           tri_attr=tri_attr)
 
 
 def rasterize_gbuffer(
@@ -262,6 +367,7 @@ def rasterize_gbuffer(
     v_attr: Optional[torch.Tensor],
     resolution: Tuple[int, int],
     config: RasterizerConfig = DEFAULT_CONFIG,
+    tri_attr: Optional[torch.Tensor] = None,
     pos_world: Optional[torch.Tensor] = None,
     mvp: Optional[torch.Tensor] = None,
     device: DeviceLike = None,
@@ -270,15 +376,16 @@ def rasterize_gbuffer(
     ``device`` (the card unless ``device="cpu"``; inputs are moved there).
 
     pos (B, V, 4) clip positions; tri (T, 3); v_attr (V, A) or None.
-    ``pos_world`` (V, 3) + ``mvp`` (B, 4, 4): when given, clip corners are
-    computed from world corners gathered once. Returns mask / z / tri_id /
-    attr.
+    ``tri_attr`` (T, 3): corner indices for v_attr where the attribute
+    topology differs from the rasterized one. ``pos_world`` (V, 3) +
+    ``mvp`` (B, 4, 4): when given, the flat path computes clip corners from
+    world corners gathered once. Returns mask / z / tri_id / attr.
 
-    Only the flat binned path is ported: meshes below
-    ``config.bin_sort_pairs_min_tris`` triangles (or whose int32 sort keys
-    would overflow) raise NotImplementedError. Triangle ids are exact int32
-    at any count (the JAX package's 2^24 limit comes from its float id
-    rows, which this port does not have)."""
+    At least ``config.bin_sort_pairs_min_tris`` triangles (and int32 sort
+    keys) take the flat path and K1, fewer the per-tile path and K2 (K3 for
+    ``backend="vpu_pallas"``). Triangle ids are exact int32 at any count
+    (the JAX package's 2^24 limit comes from its float id rows, which the
+    flat path here does not have)."""
     dev = resolve_device(device)
     _check_ported(config)
     height, width = resolution
@@ -286,25 +393,13 @@ def rasterize_gbuffer(
     tri = tri.to(device=dev, dtype=torch.long)
     if v_attr is not None:
         v_attr = v_attr.to(device=dev, dtype=torch.float32)
+    if tri_attr is not None:
+        tri_attr = tri_attr.to(device=dev, dtype=torch.long)
     if pos_world is not None and mvp is not None:
         pos_world = pos_world.to(device=dev, dtype=torch.float32)
         mvp = mvp.to(device=dev, dtype=torch.float32)
-
-    n_tiles = (-(-height // config.tile_h)) * (-(-width // config.tile_w))
-    t_total = tri.shape[0]
-    use_flat = (
-        config.bin_mode == "sort_pairs"
-        and t_total >= config.bin_sort_pairs_min_tris
-        and (n_tiles + 1) * t_total < 2**31
-    )
-    if not use_flat:
-        raise NotImplementedError(
-            "only the flat binned G-buffer path is ported (bin_mode="
-            "'sort_pairs' and at least bin_sort_pairs_min_tris triangles); "
-            "the per-tile path comes with classic rasterize() "
-            "(ROADMAP queue 1 item 8)"
-        )
-    mask, z, tri_id, attr = _gbuffer_dma_batched(
-        pos, tri, v_attr, height, width, config, pos_world=pos_world, mvp=mvp,
+    mask, z, tri_id, attr = _gbuffer_core(
+        pos, tri, v_attr, height, width, config, tri_attr=tri_attr,
+        pos_world=pos_world, mvp=mvp,
     )
     return GBufferOutput(mask=mask, z=z, tri_id=tri_id, attr=attr)

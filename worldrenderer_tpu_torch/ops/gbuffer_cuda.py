@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from . import _build
+from .tensor import pixel_centres
 
 BACKGROUND_ID = 2**30
 
@@ -86,10 +87,8 @@ def gbuffer_tiles_plain(
     bsz, n_rows, l_cap = recs.shape
     dev = recs.device
     n_tiles = n_ty * n_tx
-    p = tile_h * tile_w
-    pix = torch.arange(p, device=dev)
-    lx = (pix % tile_w).to(torch.float32) + 0.5
-    ly = (pix // tile_w).to(torch.float32) + 0.5
+    lx, ly = pixel_centres(tile_h, tile_w, dev)
+    p = lx.shape[0]
     lane = torch.arange(c, device=dev)
 
     # (B*L, 12) entry-major geometry and flat (B*L,) rows of the rest.

@@ -1,27 +1,38 @@
-"""Rasterizer configuration, triangle setup and flat tile binning
-(PyTorch counterpart of ``worldrenderer_tpu/ops/rasterize.py``, the parts
-the fused G-buffer path runs).
+"""Rasterizer configuration, triangle setup, tile binning and the classic
+nvdiffrast-style API (PyTorch counterpart of
+``worldrenderer_tpu/ops/rasterize.py``).
 
 Every function here takes the view batch as a written-out leading
 dimension B. Screen-space planes, bboxes and binning follow the JAX
 package expression by expression, so one ``RasterizerConfig`` drives both
-packages and binning lists come out equal. Arithmetic is separately rounded
-fp32 (PyTorch fuses no multiply-add), which keeps the CPU and the card
-bit-identical; XLA on the CPU contracts ``a * b + c`` into FMAs, so the JAX
-reference differs from the port in the last bit of some planes.
+packages and binning lists come out equal. Elementwise arithmetic is
+separately rounded fp32 (PyTorch fuses no multiply-add), which keeps the
+CPU and the card bit-identical and equal to the JAX package run op by op;
+jitted, XLA on the CPU contracts ``a * b + c`` into FMAs, so the jitted
+reference differs in the last bit of some planes. Where the reference
+contracts with an fp32 dot (``einsum`` at ``Precision.HIGHEST``), the port
+rounds as that dot does, through ``transforms.fma_f32``.
+
+``rasterize`` returns (B, H, W, 4) channels (u, v, z/w, triangle_id + 1),
+0 on background: below ``bin_sort_pairs_min_tris`` triangles through the
+classic setup, dense per-tile binning and kernel K4
+(``raster_zid_cuda.py``), above it through the flat G-buffer path and
+kernel K1 in uv mode.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .._device import to_int32_sat
+from .._device import DeviceLike, resolve_device, to_int32_sat
+from .raster_zid_cuda import raster_zid_tiles
+from .tensor import BIG_NEG, fma_dot3
 
 __all__ = [
     "RasterizerConfig", "DEFAULT_CONFIG", "FAST_TPU_CONFIG",
-    "binning_stats", "auto_fast_config",
+    "binning_stats", "auto_fast_config", "rasterize", "rasterize_db",
 ]
 
 _W_EPS = 1e-8
@@ -39,8 +50,9 @@ class RasterizerConfig(NamedTuple):
         of the TPU kernel);
       * ``bin_subtile > 1`` and ``bin_tiny_px > 0`` raise
         ``NotImplementedError`` (ROADMAP queue 1 item 7);
-      * ``backend`` takes the JAX package's names; all of them run the
-        same route, chosen by device (see ``_BACKEND_NAMES``).
+      * ``backend`` takes the JAX package's names and picks the kernel
+        (see ``_BACKEND_NAMES``); each kernel's wrapper picks the CUDA
+        kernel or its plain version by the tensors' device.
     Field meanings are documented on the JAX package's config."""
 
     tile_h: int = 32
@@ -86,9 +98,14 @@ def _auto_cap(t_total: int, n_tiles: int) -> int:
     )
 
 
-# The JAX package's backend names. Each drives the same route here: the
-# kernel wrapper picks K1 or its plain version by the tensors' device, so
-# "auto" and the Pallas and XLA names all mean "the G-buffer path".
+# The JAX package's backend names. The flat path (at least
+# bin_sort_pairs_min_tris triangles) runs K1 for every name, classic
+# rasterize() included. Below it, rasterize_gbuffer() and render() run K3
+# for "vpu_pallas" and K2 for every other name; rasterize() runs K4 for
+# every name; render() takes its fused branch for "auto", "fused_pallas"
+# and "fused_xla" and the classic rasterize() + interpolate() branch for
+# the rest, as the JAX package's render() does. Each kernel's wrapper picks
+# the CUDA kernel or its plain version by the tensors' device.
 _BACKEND_NAMES = ("auto", "fused_pallas", "fused_xla", "vpu_pallas", "pallas",
                   "xla")
 
@@ -151,6 +168,7 @@ def _triangle_setup_t(
     width: int,
     height: int,
     backface_cull: int = 0,
+    z_dot: bool = False,
 ) -> _TriSetupT:
     """Triangle setup for every view. ``v4`` (B, 4, 3, T): clip positions,
     vertex-major (see :func:`_clip_corners`).
@@ -159,7 +177,9 @@ def _triangle_setup_t(
     cofactors of [x*w; y*w; w]) and a conservative bbox; ``backface_cull``
     +1 / -1 drops screen-clockwise / counter-clockwise non-crossing
     triangles (with the negated-Y projection, -1 culls the back faces of
-    outward-CCW meshes)."""
+    outward-CCW meshes). ``z_dot``: round the z plane as the classic
+    setup's ``einsum`` does (``tensor.fma_dot3``) instead of as separately
+    rounded products and sums."""
     nxt = [1, 2, 0]
     prv = [2, 0, 1]
     w = v4[:, 3]  # (B, 3, T)
@@ -190,9 +210,12 @@ def _triangle_setup_t(
     gamma = dys * ax - dxs * ay
     # z/w plane: z_c = sum_i zw_i * inv_area * edge_plane_i_c.
     zc = zw * inv_area[:, None]
-    z_a = zc[:, 0] * alpha[:, 0] + zc[:, 1] * alpha[:, 1] + zc[:, 2] * alpha[:, 2]
-    z_b = zc[:, 0] * beta[:, 0] + zc[:, 1] * beta[:, 1] + zc[:, 2] * beta[:, 2]
-    z_g = zc[:, 0] * gamma[:, 0] + zc[:, 1] * gamma[:, 1] + zc[:, 2] * gamma[:, 2]
+    if z_dot:
+        z_a, z_b, z_g = (fma_dot3(zc, c, 1) for c in (alpha, beta, gamma))
+    else:
+        z_a = zc[:, 0] * alpha[:, 0] + zc[:, 1] * alpha[:, 1] + zc[:, 2] * alpha[:, 2]
+        z_b = zc[:, 0] * beta[:, 0] + zc[:, 1] * beta[:, 1] + zc[:, 2] * beta[:, 2]
+        z_g = zc[:, 0] * gamma[:, 0] + zc[:, 1] * gamma[:, 1] + zc[:, 2] * gamma[:, 2]
     bbox4 = torch.stack(
         [x.amin(dim=1), x.amax(dim=1), y.amin(dim=1), y.amax(dim=1)], dim=1
     )
@@ -728,3 +751,312 @@ def auto_fast_config(
         if not final["ok"]:
             raise ValueError(f"auto_fast_config failed to validate: {final}")
     return cfg
+
+
+# ---- The classic per-view layout and the per-tile path ----------------------
+
+class _TriSetup(NamedTuple):
+    """Per-triangle screen-space planes in the classic layout, views
+    leading, with a trailing padded slot T (valid=False) that binned id
+    lists pad with: edge i of triangle t is ``planes[:, t, i, 0] * px +
+    planes[:, t, i, 1] * py + planes[:, t, i, 2]``; row 3 is the z plane."""
+
+    planes: torch.Tensor  # (B, T+1, 4, 3) f32
+    inv_w: torch.Tensor  # (B, T+1, 3)
+    inv_area: torch.Tensor  # (B, T+1)
+    valid: torch.Tensor  # (B, T+1) bool
+    bbox: torch.Tensor  # (B, T+1, 4) xmin, xmax, ymin, ymax
+
+
+def _triangle_setup(
+    pos_clip: torch.Tensor,
+    tri: torch.Tensor,
+    width: int,
+    height: int,
+    backface_cull: int = 0,
+) -> _TriSetup:
+    """The JAX package's classic ``_triangle_setup`` for every view:
+    pos_clip (B, V, 4), tri (T, 3). The same planes as
+    :func:`_triangle_setup_t` but for the z plane, which the classic setup
+    contracts with an fp32 ``einsum``."""
+    st = _triangle_setup_t(
+        _clip_corners(pos_clip, tri), width, height, backface_cull, z_dot=True
+    )
+    bsz, _, t1 = st.planes12.shape
+    return _TriSetup(
+        planes=st.planes12.transpose(1, 2).reshape(bsz, t1, 4, 3).contiguous(),
+        inv_w=st.inv_w.transpose(1, 2).contiguous(),
+        inv_area=st.inv_area,
+        valid=st.valid,
+        bbox=st.bbox4.transpose(1, 2).contiguous(),
+    )
+
+
+def _bin_triangles(
+    setup: _TriSetup,
+    width: int,
+    height: int,
+    tile_h: int,
+    tile_w: int,
+    max_per_tile: int,
+):
+    """Dense per-tile binning: the overlapping triangles of each tile in
+    input order, by a stable argsort of the (tile, triangle) overlap.
+    Returns (ids (B, n_tiles, K) i32 padded with T, counts (B, n_tiles) i32
+    of live entries, a prefix of each list), K = min(max_per_tile, T).
+
+    This is the branch of the JAX package's ``_bin_dispatch`` that its
+    callers reach: they take the flat path wherever its sort_pairs branch
+    would apply."""
+    n_ty = -(-height // tile_h)
+    n_tx = -(-width // tile_w)
+    t_total = setup.valid.shape[1] - 1
+    dev = setup.valid.device
+    bbox = setup.bbox[:, :-1]
+
+    def tile_index(v, size, n):
+        return to_int32_sat(torch.clamp(torch.floor(v / size), 0, n - 1))
+
+    tx0 = tile_index(bbox[..., 0] - 0.5, tile_w, n_tx)[:, None]  # (B, 1, T)
+    tx1 = tile_index(bbox[..., 1] + 0.5, tile_w, n_tx)[:, None]
+    ty0 = tile_index(bbox[..., 2] - 0.5, tile_h, n_ty)[:, None]
+    ty1 = tile_index(bbox[..., 3] + 0.5, tile_h, n_ty)[:, None]
+    on_screen = (
+        (bbox[..., 1] >= 0) & (bbox[..., 0] <= width)
+        & (bbox[..., 3] >= 0) & (bbox[..., 2] <= height)
+        & setup.valid[:, :-1]
+    )[:, None]
+    tile_ix = torch.arange(n_ty * n_tx, dtype=torch.int32, device=dev)
+    tyi = (tile_ix // n_tx)[None, :, None]
+    txi = (tile_ix % n_tx)[None, :, None]
+    overlap = (
+        (txi >= tx0) & (txi <= tx1) & (tyi >= ty0) & (tyi <= ty1) & on_screen
+    )  # (B, n_tiles, T)
+    k = min(max_per_tile, t_total)
+    order = torch.argsort((~overlap).to(torch.uint8), dim=2, stable=True)
+    counts = overlap.sum(dim=2, dtype=torch.int32)
+    keep = torch.arange(k, device=dev) < counts[..., None]
+    ids = torch.where(keep, order[..., :k].to(torch.int32), t_total)
+    return ids, torch.clamp(counts, max=k)
+
+
+def _tile_origins(n_ty: int, n_tx: int, tile_h: int, tile_w: int, dev):
+    """(n_tiles, 2) f32 pixel origins (x0, y0) of the tiles, row-major."""
+    tile_ix = torch.arange(n_ty * n_tx, dtype=torch.int32, device=dev)
+    return torch.stack(
+        [(tile_ix % n_tx * tile_w).to(torch.float32),
+         (tile_ix // n_tx * tile_h).to(torch.float32)],
+        dim=-1,
+    )
+
+
+def _rebase_rows(planes, valid, origin):
+    """Rebase gathered (..., K, R, 3) plane rows to their tiles' origins
+    (g + a*ox + b*oy) and give invalid entries an e0 constant of
+    ``BIG_NEG``; ``origin`` (n_tiles, 2) matches the tile dim at -4."""
+    ox = origin[:, 0, None, None]
+    oy = origin[:, 1, None, None]
+    gamma = planes[..., 2] + planes[..., 0] * ox + planes[..., 1] * oy
+    gamma = torch.cat(
+        [torch.where(valid[..., None], gamma[..., :1], BIG_NEG), gamma[..., 1:]],
+        dim=-1,
+    )
+    return torch.cat([planes[..., :2], gamma[..., None]], dim=-1)
+
+
+def _gather_tile_rows(all_planes, valid, ids, tile_origin):
+    """Each tile's plane rows, rebased to the tile origin: all_planes
+    (B, T+1, R, 3), valid (B, T+1), ids (B, n_tiles, K) -> (B * n_tiles,
+    3, R*K) coef-major, R blocks of K. Invalid and padded entries get an e0
+    constant of ``BIG_NEG`` (never covered)."""
+    bsz, n_tiles, _ = ids.shape
+    bidx = torch.arange(bsz, device=ids.device)[:, None, None]
+    idx = ids.long()
+    planes = _rebase_rows(all_planes[bidx, idx], valid[bidx, idx], tile_origin)
+    return planes.permute(0, 1, 4, 3, 2).reshape(bsz * n_tiles, 3, -1)
+
+
+def _gather_tile_coeffs(
+    setup: _TriSetup, ids: torch.Tensor, tile_origin: torch.Tensor
+) -> torch.Tensor:
+    """K4's input: each tile's [e0|e1|e2|z] blocks of K, (B * n_tiles, 3,
+    4K)."""
+    return _gather_tile_rows(setup.planes, setup.valid, ids, tile_origin)
+
+
+def _detile(x: torch.Tensor, bsz, n_ty, n_tx, height, width):
+    """(B * n_tiles, th, tw) tiles -> (B, height, width), and
+    (B * n_tiles, C, th, tw) -> (B, C, height, width)."""
+    th, tw = x.shape[-2:]
+    chans = tuple(x.shape[1:-2])
+    x = x.reshape(bsz, n_ty, n_tx, -1, th, tw).permute(0, 3, 1, 4, 2, 5)
+    x = x.reshape(bsz, -1, n_ty * th, n_tx * tw)[:, :, :height, :width]
+    return x.reshape((bsz,) + chans + (height, width))
+
+
+def _pixel_centres(bsz, height, width, dev):
+    px = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
+    py = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
+    return (px[None, None, :].expand(bsz, height, width),
+            py[None, :, None].expand(bsz, height, width))
+
+
+def _winner_rows(setup: _TriSetup, idmap: torch.Tensor):
+    """(planes (B, H, W, 4, 3), inv_w (B, H, W, 3), inv_area (B, H, W)) of
+    each pixel's triangle (triangle 0 on background)."""
+    t = torch.clamp(idmap - 1, min=0).long()
+    bidx = torch.arange(idmap.shape[0], device=idmap.device)[:, None, None]
+    return setup.planes[bidx, t], setup.inv_w[bidx, t], setup.inv_area[bidx, t]
+
+
+def _resolve_uv(setup: _TriSetup, idmap: torch.Tensor,
+                zmap: torch.Tensor) -> torch.Tensor:
+    """Perspective-correct (u, v) of each pixel's winning triangle: idmap
+    (B, H, W) i32 (0 = background), zmap (B, H, W). Returns rast
+    (B, H, W, 4) = (u, v, z, idmap)."""
+    bsz, h, w = idmap.shape
+    px, py = _pixel_centres(bsz, h, w, idmap.device)
+    planes, inv_w, inv_area = _winner_rows(setup, idmap)
+    e = (planes[..., :3, 0] * px[..., None] + planes[..., :3, 1] * py[..., None]
+         + planes[..., :3, 2])  # (B, H, W, 3)
+    pw = e * inv_area[..., None] * inv_w
+    denom = pw[..., 0] + pw[..., 1] + pw[..., 2]
+    denom = torch.where(denom.abs() < 1e-20, 1e-20, denom)
+    mask = idmap > 0
+    u = torch.where(mask, pw[..., 1] / denom, 0.0)
+    v = torch.where(mask, pw[..., 2] / denom, 0.0)
+    zout = torch.where(mask, zmap, 0.0)
+    return torch.stack([u, v, zout, idmap.to(torch.float32)], dim=-1)
+
+
+def _resolve_db(setup: _TriSetup, idmap: torch.Tensor) -> torch.Tensor:
+    """Analytic image-space derivatives of the winning triangle's
+    barycentrics (nvdiffrast's rast_db: du/dX, du/dY, dv/dX, dv/dY), zero on
+    background. With u = n1/D, v = n2/D, n_i = e_i * inv_w_i and D = sum
+    n_i all screen-affine planes, the quotient rule gives them exactly."""
+    bsz, h, w = idmap.shape
+    px, py = _pixel_centres(bsz, h, w, idmap.device)
+    planes, inv_w, _ = _winner_rows(setup, idmap)
+    nc = planes[..., :3, :] * inv_w[..., None]  # (B, H, W, 3 edges, 3 coefs)
+    dc = nc[..., 0, :] + nc[..., 1, :] + nc[..., 2, :]  # denominator plane
+    n_val = nc[..., 0] * px[..., None] + nc[..., 1] * py[..., None] + nc[..., 2]
+    d_val = n_val[..., 0] + n_val[..., 1] + n_val[..., 2]
+    d_val = torch.where(d_val.abs() < 1e-20, 1e-20, d_val)
+    inv_d2 = 1.0 / (d_val * d_val)
+
+    def ddir(i, c):  # d(n_i / D) / d{X, Y}: (n_i_c * D - n_i * D_c) / D^2
+        return (nc[..., i, c] * d_val - n_val[..., i] * dc[..., c]) * inv_d2
+
+    db = torch.stack([ddir(1, 0), ddir(1, 1), ddir(2, 0), ddir(2, 1)], dim=-1)
+    return torch.where((idmap > 0)[..., None], db, 0.0)
+
+
+def _use_flat(config: RasterizerConfig, t_total: int, n_tiles: int) -> bool:
+    """The flat binned path: sort_pairs binning at scale, int32 keys."""
+    return (
+        config.bin_mode == "sort_pairs"
+        and t_total >= config.bin_sort_pairs_min_tris
+        and (n_tiles + 1) * t_total < 2**31
+    )
+
+
+def _binned_setup(pos, tri, height, width, config):
+    """Classic setup and dense binning for a batch of views, the per-tile
+    paths' common prep: (setup, ids, counts, tile origins)."""
+    tile_h, tile_w = config.tile_h, config.tile_w
+    n_ty, n_tx = -(-height // tile_h), -(-width // tile_w)
+    setup = _triangle_setup(pos, tri, width, height, config.backface_cull)
+    max_per_tile = (config.max_tris_per_tile
+                    or _auto_cap(tri.shape[0], n_ty * n_tx))
+    ids, counts = _bin_triangles(setup, width, height, tile_h, tile_w,
+                                 max_per_tile)
+    origins = _tile_origins(n_ty, n_tx, tile_h, tile_w, pos.device)
+    return setup, ids, counts, origins
+
+
+def _zid_inputs(pos, tri, height, width, config):
+    """The per-tile prep and the tile coefficient gather for a batch of
+    views: (setup, K4's inputs ``(coeffs, ids, counts)``, its static
+    arguments ``(tile_h, tile_w, chunk)``)."""
+    setup, ids, counts, origins = _binned_setup(pos, tri, height, width,
+                                                config)
+    coeffs = _gather_tile_coeffs(setup, ids, origins)
+    inputs = (coeffs, ids.reshape(-1, ids.shape[-1]), counts.reshape(-1))
+    return setup, inputs, (config.tile_h, config.tile_w, config.chunk)
+
+
+def _rasterize_tiles(pos, tri, height, width, config):
+    """The per-tile path of classic ``rasterize`` for a batch of views: the
+    tile coefficients of :func:`_zid_inputs`, ONE K4 launch over every
+    (view, tile), then the (u, v) resolve. Returns rast (B, H, W, 4)."""
+    n_ty = -(-height // config.tile_h)
+    n_tx = -(-width // config.tile_w)
+    bsz = pos.shape[0]
+    setup, inputs, dims = _zid_inputs(pos, tri, height, width, config)
+    z_t, id_t = raster_zid_tiles(*inputs, *dims)
+    zmap = _detile(z_t, bsz, n_ty, n_tx, height, width)
+    idmap = _detile(id_t, bsz, n_ty, n_tx, height, width)
+    return _resolve_uv(setup, idmap, zmap)
+
+
+def _rasterize_batched(pos, tri, height, width, config):
+    n_tiles = (-(-height // config.tile_h)) * (-(-width // config.tile_w))
+    if _use_flat(config, tri.shape[0], n_tiles):
+        # The flat path emits the whole rast contract: (u, v) are the
+        # interpolated one-hot corner attributes of uv mode.
+        from .gbuffer import _gbuffer_dma_batched
+
+        _, z, tri_id, uv = _gbuffer_dma_batched(
+            pos, tri, None, height, width, config, uv_mode=True
+        )
+        return torch.cat(
+            [uv, z[..., None], tri_id.to(torch.float32)[..., None]], dim=-1
+        )
+    return _rasterize_tiles(pos, tri, height, width, config)
+
+
+def _classic_inputs(pos, tri, config, device):
+    if pos.ndim != 3:
+        raise ValueError("pos must be (B, V, 4) — range mode is not supported")
+    _check_ported(config)
+    dev = resolve_device(device)
+    return (pos.to(device=dev, dtype=torch.float32),
+            tri.to(device=dev, dtype=torch.long))
+
+
+def rasterize(
+    pos: torch.Tensor,
+    tri: torch.Tensor,
+    resolution: Tuple[int, int],
+    config: RasterizerConfig = DEFAULT_CONFIG,
+    grad_db: bool = True,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Rasterize triangles on ``device`` (the card unless ``device="cpu"``;
+    inputs are moved there). pos (B, V, 4) clip positions, tri (T, 3).
+
+    Returns (B, H, W, 4) with channels (u, v, z/w, tri_id + 1), 0 on
+    background; ``grad_db`` is accepted for signature parity (see
+    :func:`rasterize_db`)."""
+    del grad_db
+    pos, tri = _classic_inputs(pos, tri, config, device)
+    height, width = resolution
+    return _rasterize_batched(pos, tri, height, width, config)
+
+
+def rasterize_db(
+    pos: torch.Tensor,
+    tri: torch.Tensor,
+    resolution: Tuple[int, int],
+    config: RasterizerConfig = DEFAULT_CONFIG,
+    device: DeviceLike = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rasterize with image-space barycentric derivatives on ``device``.
+    Returns (rast (B, H, W, 4), rast_db (B, H, W, 4)); rast_db channels are
+    (du/dX, du/dY, dv/dX, dv/dY), zero on background, from the planes of a
+    setup without backface culling, as the JAX package derives them."""
+    pos, tri = _classic_inputs(pos, tri, config, device)
+    height, width = resolution
+    rast = _rasterize_batched(pos, tri, height, width, config)
+    setup = _triangle_setup(pos, tri, width, height)
+    return rast, _resolve_db(setup, rast[..., 3].to(torch.int32))

@@ -1,6 +1,12 @@
 """G-buffer rendering: mask / position / depth / normal maps for a batch of
 views (PyTorch counterpart of ``worldrenderer_tpu/render.py``; textured
 colour, tangents, supersampling and view chunking come in a later slice).
+
+The fused branch (``backend`` "auto", "fused_pallas" or "fused_xla")
+rasterizes every channel as attribute planes in one pass; every other
+backend takes the classic branch, ``rasterize`` then ``interpolate``, as the
+JAX package's ``render`` routes them (so ``"vpu_pallas"`` reaches kernel K3
+through ``rasterize_gbuffer``, not through ``render``).
 """
 
 from __future__ import annotations
@@ -13,7 +19,8 @@ from ._device import DeviceLike, resolve_device
 from .camera import Camera, normalize
 from .mesh import TexturedMesh, compute_vertex_normals, with_normals
 from .ops.gbuffer import rasterize_gbuffer
-from .ops.rasterize import DEFAULT_CONFIG, RasterizerConfig
+from .ops.interpolate import interpolate
+from .ops.rasterize import DEFAULT_CONFIG, RasterizerConfig, rasterize
 from .transforms import get_clip_space_position, transform_points_homo
 
 __all__ = [
@@ -142,6 +149,48 @@ def _render_fused(
     return RenderOutput(**res)
 
 
+def _render_classic(
+    mesh: TexturedMesh,
+    cam: Camera,
+    v_pos_clip: torch.Tensor,
+    height: int,
+    width: int,
+    *,
+    render_depth: bool,
+    render_normal: bool,
+    depth_normalization_strategy,
+    normal_background,
+    raster_config: RasterizerConfig,
+    device: torch.device,
+) -> RenderOutput:
+    """The nvdiffrast-style branch: ``rasterize``, then every channel by
+    ``interpolate`` (normals over the stitched topology)."""
+    rast = rasterize(v_pos_clip, mesh.t_pos_idx, (height, width),
+                     raster_config, device=device)
+    mask = rast[..., 3] > 0
+    gb_pos = interpolate(mesh.v_pos[None], rast, mesh.t_pos_idx, device=device)
+    res = {"mask": mask, "pos": gb_pos}
+
+    if render_depth:
+        gb_depth = -transform_points_homo(gb_pos, cam.w2c)[..., 2]
+        # Background pixels take the per-view minimum over every pixel,
+        # background included, before normalization (as the JAX package's
+        # classic branch does).
+        b = gb_depth.shape[0]
+        mn = gb_depth.reshape(b, -1).amin(dim=1)[:, None, None]
+        gb_depth = torch.where(mask, gb_depth, mn)
+        if depth_normalization_strategy is not None:
+            gb_depth = depth_normalization_strategy(gb_depth, mask)
+        res["depth"] = gb_depth
+
+    if render_normal:
+        gb_nrm = interpolate(mesh.v_nrm[None], rast, mesh.stitched_t_pos_idx,
+                             device=device)
+        bg = torch.as_tensor(normal_background, dtype=torch.float32, device=device)
+        res["normal"] = torch.where(mask[..., None], normalize(gb_nrm), bg)
+    return RenderOutput(**res)
+
+
 def render(
     mesh: TexturedMesh,
     cam: Camera,
@@ -163,11 +212,11 @@ def render(
     ``device="cpu"``; mesh and camera are moved there).
 
     Ported channels: mask, pos, depth (with its three normalizations) and
-    normal. ``render_attr`` (textured colour), ``render_tangent``,
-    ``antialias_attr``, ``ssaa > 1`` and ``view_chunk`` raise
-    NotImplementedError until textures are ported (ROADMAP queue 1 item 5);
-    pass ``render_attr=False``. The classic backends ``"xla"`` and
-    ``"pallas"`` come with classic ``rasterize()`` (queue 1 item 8)."""
+    normal, at any triangle count, through the fused branch or, for
+    ``backend`` "xla", "pallas" or "vpu_pallas", the classic one. ``render_attr``
+    (textured colour), ``render_tangent``, ``antialias_attr``, ``ssaa > 1``
+    and ``view_chunk`` raise NotImplementedError until textures are ported
+    (ROADMAP queue 1 item 5); pass ``render_attr=False``."""
     if render_attr or render_tangent or antialias_attr:
         raise NotImplementedError(
             "textured colour and tangents are not ported yet (ROADMAP queue 1 "
@@ -177,16 +226,13 @@ def render(
         raise NotImplementedError(
             "ssaa and view_chunk are not ported yet (ROADMAP queue 1 item 5)"
         )
-    if raster_config.backend in ("xla", "pallas"):
-        raise NotImplementedError(
-            "the classic rasterize() pipeline is not ported yet (ROADMAP "
-            "queue 1 item 8)"
-        )
     dev = resolve_device(device)
     mesh = with_normals(mesh.to(dev))
     cam = cam.to(dev)
     v_pos_clip = get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
-    return _render_fused(
+    fused = raster_config.backend in ("auto", "fused_pallas", "fused_xla")
+    branch = _render_fused if fused else _render_classic
+    return branch(
         mesh, cam, v_pos_clip, height, width,
         render_depth=render_depth,
         render_normal=render_normal,

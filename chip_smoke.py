@@ -6,7 +6,9 @@ Phases, one line each; any failure exits nonzero before the last line:
   1. environment: the card's name and power limit (nvidia-smi), versions;
   2. build of every kernel from the package's csrc/, timed;
   3. every kernel against its plain PyTorch version on the card, bit for
-     bit, at the shapes the main path gives it and on edge-case inputs;
+     bit, at the shapes the main path gives it and on edge-case inputs (the
+     probes P1-P3 at their own shapes, P1 also on the headline's chunk
+     runs), with times, bounds and library calls;
   4. the main path — the headline G-buffer render of bench.py:434 (6 views
      at 512², positions + normals, a 10,082-triangle heightfield,
      auto_fast_config budgets) through ``render()`` — with every kernel's
@@ -18,7 +20,16 @@ Phases, one line each; any failure exits nonzero before the last line:
      3,968-triangle UV sphere, 6 views at 512²) with the fused_pallas
      (K2), vpu_pallas (K3) and pallas (K4) backends; [atlas] workload 2,
      the bake's 2048² UV-atlas pass (K4); [classic] workload 3,
-     ``rasterize`` and ``rasterize_db`` on the flat path (K1 in uv mode).
+     ``rasterize`` and ``rasterize_db`` on the flat path (K1 in uv mode);
+  6. slice 3's paths, each with its launch counts read around it:
+     [texture] bench.py:731's config4 (4 views at 1024², textured colour,
+     depth and normals) with texture_pack_mode none (against the port's
+     CPU run), u8 (equal to none) and the split-UV mesh through render's
+     own seam cut (equal to the explicitly unified mesh), each with the
+     texture call timed alone; [attr] workload 1 with a 512² checker:
+     fused with tangents (K2), classic with antialias_attr (K4), auto_mip;
+     [chunk] bench.py:614's config2 with view_chunk=8 against unchunked;
+     [ssaa] the headline at ssaa=2; [probes] the entry points of P1-P3.
 The second-to-last line is a JSON record of every kernel (launches on the
 main paths, error against the plain version, times, bound); the last line
 is the device summary, printed only when every phase passed.
@@ -49,6 +60,10 @@ PEAK_FP32_INSTR = PEAK_FP32_FLOPS / 2
 # (2 multiplies + 2 adds) and six compares (e0, e1, e2 >= 0, -1 <= z <= 1,
 # z < zbest).
 K1_OPS_PER_PAIR = 22
+# Shared memory serves 32 banks of 4 bytes per clock on each of the 132
+# SMs; the clock is the card's maximum SM clock (nvidia-smi clocks.max.sm).
+SMEM_BYTES_PER_CLOCK_SM = 128
+N_SMS = 132
 # fp32 instructions per (entry, pixel) pair in K2's, K3's and K4's scans:
 # four planes of (a multiply, an FMA and an add; they are built with
 # -fmad=false too, but spell the FMA out) and the same six compares.
@@ -65,21 +80,6 @@ def smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events,
-    after one warm-up call)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def profile_ms(fn, reps: int = 3):
@@ -249,12 +249,12 @@ def k1_bound_ms(inputs, dims) -> tuple:
     return bytes_ms, "bytes", live_chunks
 
 
-def sphere_scene(pt, device, views=6):
+def sphere_scene(pt, device, views=6, texture=None):
     """Workload 1: the 3,968-triangle UV sphere uv_sphere_mesh(32, 65) and
     bench.py:597's orbit (elevation 20, distance 2.7, fovy 40)."""
     verts, faces, uv = pt.uv_sphere_mesh(32, 65)
     mesh = pt.mesh_from_arrays(verts, faces, v_tex=uv, t_tex_idx=faces,
-                               device=device)
+                               texture=texture, device=device)
     cam = pt.get_camera(elevation_deg=20.0, distance=2.7, fovy_deg=40.0,
                         num_views=views, near=0.1, far=10.0, device=device)
     return pt.with_normals(mesh), cam
@@ -580,6 +580,415 @@ def spread_report(pt, mesh, cam, dev, kw, out, ref) -> None:
         f"{max_err(same_vn.pos, ref.pos, both)}")
 
 
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm, MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def checker(size, period):
+    """bench.py's checker texture: (size, size, 3), squares of ``period``
+    texels, quantized to k/255."""
+    t = (np.indices((size, size)).sum(0) // period % 2).astype(np.float32)
+    return np.round(np.stack([t, 1 - t, t * 0 + 0.5], -1) * 255) / 255
+
+
+def config4_scene(pt, device, split=False):
+    """bench.py:684's config4: the 10,082-triangle heightfield with planar
+    UVs, a 1024² checker of 64-texel squares (k/255) and 4 views at
+    elevation 35, distance 3, fovy 50. ``split``: bench.py:749-784's
+    split-UV topology (the middle column's UVs duplicated for the faces to
+    its right)."""
+    n = 72
+    verts, faces = pt.make_grid_mesh(
+        n, height_fn=lambda x, y: 0.3 * np.sin(3 * x) * np.cos(3 * y))
+    uv = (verts[:, :2] - verts[:, :2].min(0)) / np.ptp(verts[:, :2], 0)
+    v_tex, t_tex = uv, faces
+    if split:
+        col = np.arange(n * n) % n
+        mid = np.where(col == n // 2)[0]
+        v_tex = np.concatenate([uv, uv[mid]], axis=0)
+        alt = np.arange(n * n)
+        alt[mid] = n * n + np.arange(mid.size)
+        right = col[faces].max(axis=1) > n // 2
+        t_tex = np.where(right[:, None], alt[faces], faces)
+    mesh = pt.mesh_from_arrays(verts, faces, v_tex=v_tex, t_tex_idx=t_tex,
+                               texture=checker(1024, 64), device=device)
+    cam = pt.get_camera(elevation_deg=35.0, distance=3.0, fovy_deg=50.0,
+                        num_views=4, near=0.1, far=10.0, device=device)
+    return mesh, cam
+
+
+def config4_cfg(pt, mesh, cam):
+    """bench.py:248-256's sizing: auto_fast_config on FAST_TPU_CONFIG."""
+    pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+    return pt.auto_fast_config(pos, mesh.t_pos_idx, (1024, 1024),
+                               base=pt.FAST_TPU_CONFIG)
+
+
+def textured_kernel_inputs(pt, gb, dev):
+    """K1 and K2 at slice 3's widths: config4's flat-path inputs at 1024²
+    with normals and (u, v) as attributes (n_vals 6), and workload 1's
+    per-tile inputs with normals, tangents and (u, v) (n_vals 9)."""
+    mesh, cam = config4_scene(pt, dev)
+    mesh = pt.with_normals(mesh)
+    pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+    cfg = config4_cfg(pt, mesh, cam)
+    k1 = gb._k1_inputs(pos, mesh.t_pos_idx, torch.cat([mesh.v_nrm, mesh.v_tex], -1),
+                       1024, 1024, cfg, pos_world=mesh.v_pos, mvp=cam.mvp_mtx)
+    sph, scam = sphere_scene(pt, dev)
+    sph = pt.with_normals(sph, compute_tangents=True)
+    spos = pt.get_clip_space_position(sph.v_pos, scam.mvp_mtx)
+    k2 = gb._zattr_inputs(spos, sph.t_pos_idx,
+                          torch.cat([sph.v_nrm, sph.v_tang, sph.v_tex], -1),
+                          512, 512, pt.DEFAULT_CONFIG)
+    return k1, k2
+
+
+def probe_checks(head_k1, head_dims, dev, card) -> dict:
+    """Phase 3 for P1-P3: each probe kernel against its plain version on
+    the card (P1 at the TPU probe's case and at the headline's K1 chunk
+    runs over a (6, 8, L) array; P2 at V 6, R 24, N 999,699; P3 at R 2048,
+    T 400, both axes), bit for bit; times, bounds and library calls.
+    Returns the kernels' JSON entries (launches still 0)."""
+    from worldrenderer_tpu_torch.probes import chunk_stream as p1
+    from worldrenderer_tpu_torch.probes import smem_gather as p3
+    from worldrenderer_tpu_torch.probes import transpose as p2
+
+    entries = {}
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    # P1: the probe's own case, then the headline's chunk runs.
+    own = (torch.arange(2 * 8 * 1024, dtype=torch.float32, device=dev)
+           .reshape(2, 8, 1024) * 1e-4,
+           torch.tensor([[0, 2, 4, 6], [1, 3, 5, 7]], dtype=torch.int32, device=dev),
+           torch.tensor([[2, 2, 2, 0], [1, 1, 1, 1]], dtype=torch.int32, device=dev))
+    _, _, start, nch = head_k1
+    _, th, tw, n_ty, n_tx, c = head_dims
+    x = torch.randn((start.shape[0], 8, head_k1[0].shape[2]), generator=g,
+                    device=dev)
+    head = (x, start, nch)
+    err = 0.0
+    for case, (xx, ss, nn), dims in (("probe_own", own, (4, 16, 128, 128)),
+                                     ("headline_runs", head, (n_ty * n_tx, th, tw, c))):
+        e = bitwise_against_plain("chunk_stream", [p1.chunk_stream(xx, ss, nn, *dims)],
+                                  [p1.chunk_stream_plain(xx, ss, nn, *dims)])
+        err = max(err, e)
+        log("probes", f"P1 {case}: {int(nn.sum())} live chunks, bitwise equal to "
+            f"the plain version (max abs err {e})")
+    dims = (n_ty * n_tx, th, tw, c)
+    live = int(nch.sum())
+
+    def p1_library():  # gather each tile's run with one index, then sum
+        nmax = int(nch.max())
+        j = torch.arange(nmax, device=dev)
+        idx = (start.long()[..., None] + j).clamp(max=x.shape[2] // c - 1)
+        chunks = x.reshape(x.shape[0], 8, -1, c).permute(0, 2, 1, 3)
+        got = chunks[torch.arange(x.shape[0], device=dev)[:, None, None], idx]
+        got = got * (j < nch[..., None])[..., None, None]
+        acc = got.sum((2, 3, 4))
+        return acc[..., None] + torch.arange(th * tw, device=dev, dtype=torch.float32)
+
+    ms = cuda_ms(lambda: p1.chunk_stream(*head, *dims), 50)
+    plain_ms = cuda_ms(lambda: p1.chunk_stream_plain(*head, *dims), 3)
+    lib_ms = cuda_ms(p1_library, 10)
+    nbytes = live * 8 * c * 4 + 2 * start.numel() * 4 + start.numel() * th * tw * 4
+    bound = nbytes / PEAK_BYTES * 1e3
+    log("probes", f"P1 headline runs ({card}): {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, library (index + sum) {lib_ms:.4f} ms, bound {bound:.5f} ms by "
+        f"bytes ({nbytes} B)")
+    entries["chunk_stream"] = dict(
+        name="chunk_stream", route="cuda",
+        source="worldrenderer_tpu_torch/csrc/probe_chunk_stream.cu",
+        replaces="tools/spike_dma.py:53", launches=0, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=lib_ms)
+
+    # P2: the TPU probe's record-table shape.
+    x3 = torch.randn((p2.V, p2.R, p2.N), generator=g, device=dev)
+    e = bitwise_against_plain("transpose", [p2.transpose(x3)],
+                              [p2.transpose_plain(x3)])
+    ms = cuda_ms(lambda: p2.transpose(x3), 20)
+    plain_ms = cuda_ms(lambda: p2.transpose_plain(x3), 5)
+    lib_ms = cuda_ms(lambda: x3.transpose(1, 2).contiguous(), 20)
+    nbytes = 2 * x3.numel() * 4
+    bound = nbytes / PEAK_BYTES * 1e3
+    log("probes", f"P2 ({p2.V}, {p2.R}, {p2.N}) bitwise equal to the plain "
+        f"version ({card}): {ms:.4f} ms = {nbytes / ms / 1e6:.1f} GB/s, plain "
+        f"{plain_ms:.4f} ms, library (transpose + contiguous) {lib_ms:.4f} ms, "
+        f"bound {bound:.5f} ms by bytes")
+    entries["transpose"] = dict(
+        name="transpose", route="cuda",
+        source="worldrenderer_tpu_torch/csrc/probe_transpose.cu",
+        replaces="tools/probe_transpose.py:89", launches=0, max_abs_err=e, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=lib_ms)
+    del x3
+
+    # P3: both axes at R 2048, T 400; the JSON entry is axis 0's (the
+    # windowed texture sampler's candidate primitive).
+    clock = max_sm_clock_hz()
+    loads = p3.T * p3.R * p3.LANES
+    bound = loads * 4 / (SMEM_BYTES_PER_CLOCK_SM * N_SMS * clock) * 1e3
+    res = {}
+    for axis in (1, 0):
+        xs, idx = p3.probe_inputs(axis, dev)
+        e = bitwise_against_plain("smem_gather", [p3.smem_gather(xs, idx, p3.T, axis)],
+                                  [p3.smem_gather_plain(xs, idx, p3.T, axis)])
+        ms = cuda_ms(lambda: p3.smem_gather(xs, idx, p3.T, axis), 10)
+        # The plain version is the library call: torch.gather and an add, T
+        # times.
+        plain_ms = cuda_ms(lambda: p3.smem_gather_plain(xs, idx, p3.T, axis), 2)
+        res[axis] = (e, ms, plain_ms)
+        log("probes", f"P3 axis {axis} (R {p3.R}, T {p3.T}) bitwise equal to the "
+            f"plain version ({card}): {ms:.4f} ms ({ms * 1e6 / loads:.4f} ns per "
+            f"gathered element), plain = library (gather x T) {plain_ms:.4f} ms, "
+            f"bound {bound:.5f} ms by shared-memory bytes at {clock / 1e6:.0f} MHz")
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.random((1 << 20, 12)).astype(np.float32)).to(dev)
+    rows = torch.from_numpy(rng.integers(0, 1 << 20, (8192,))).to(dev)
+    row_ms = cuda_ms(lambda: p3.row_gather(table, rows, 50), 5) / 50
+    log("probes", f"P3 baseline: (1M, 12) table row gather of 8192 rows "
+        f"{row_ms * 1e3:.3f} us ({row_ms * 1e6 / 8192:.3f} ns per row, {card})")
+    e, ms, plain_ms = res[0]
+    entries["smem_gather"] = dict(
+        name="smem_gather", route="cuda",
+        source="worldrenderer_tpu_torch/csrc/probe_smem_gather.cu",
+        replaces="tools/probe_vmem_gather.py:30", launches=0,
+        max_abs_err=max(res[0][0], res[1][0]), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by="bytes", library_ms=plain_ms)
+    return entries
+
+
+def probes_phase() -> dict:
+    """The probes' own entry points, each count set to 0 just before and
+    read just after."""
+    from worldrenderer_tpu_torch.probes import chunk_stream as p1
+    from worldrenderer_tpu_torch.probes import smem_gather as p3
+    from worldrenderer_tpu_torch.probes import transpose as p2
+
+    launches = {}
+    for name, mod in (("chunk_stream", p1), ("transpose", p2), ("smem_gather", p3)):
+        mod.launch_count = 0
+        if mod.main([]) != 0:
+            raise AssertionError(f"the {name} probe failed")
+        torch.cuda.synchronize()
+        launches[name] = mod.launch_count
+        if launches[name] < 1:
+            raise AssertionError(f"the {name} probe did not launch its kernel")
+        log("probes", f"{name} entry point: launches {launches[name]}")
+    return launches
+
+
+def texture_phase(pt, gb, gc, zc, rk, dev, card) -> int:
+    """Config4 three ways through ``render`` (attr, depth, normals at 4 x
+    1024²): texture_pack_mode none against the port's CPU run (mask and
+    tri_id within 1e-4 of the foreground, attr / pos / normal within 1e-4 /
+    1e-4 / 5e-4), u8 bit-identical to none on this k/255 texture, and the
+    split-UV mesh through render's own seam cut equal to the explicitly
+    unified mesh. Each with its K1 launches, views/s and the texture call
+    timed alone on the render's (u, v) image; then the stage split and a
+    profile of the none render. Returns K1's launches."""
+    mesh, cam = config4_scene(pt, dev)
+    cfg = config4_cfg(pt, mesh, cam)
+    kw = dict(render_attr=True, render_depth=True, render_normal=True)
+    pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+    uv_img = pt.rasterize_gbuffer(pos, mesh.t_pos_idx, mesh.v_tex, (1024, 1024),
+                                  cfg, device=dev).attr
+    tex = mesh.texture[None]
+    split, _ = config4_scene(pt, dev, split=True)
+    runs = {}
+    k1 = 0
+    for name, m, c, mode in (("none", mesh, cfg, "none"), ("u8", mesh, cfg, "u8"),
+                             ("split", split, cfg._replace(backend="auto"), "u8")):
+        def run(m=m, c=c, mode=mode):
+            return pt.render(m, cam, 1024, 1024, raster_config=c,
+                             texture_pack_mode=mode, device=dev, **kw)
+        reset_counts(gc, zc, rk)
+        runs[name] = run()
+        counts = read_counts(gc, zc, rk)
+        if counts["gbuffer_tiles"] < 1:
+            raise AssertionError(f"config4 {name} did not launch K1")
+        k1 += counts["gbuffer_tiles"]
+        ms = cuda_ms(run, 5)
+        tex_ms = cuda_ms(lambda: pt.texture(tex, uv_img, pack_mode=mode,
+                                            device=dev), 20)
+        log("texture", f"config4 {name}: K1 launches {counts['gbuffer_tiles']}, "
+            f"{ms:.4f} ms = {len(cam) / (ms / 1e3):.2f} views/s, texture call "
+            f"alone {tex_ms:.4f} ms ({card})")
+        runs[name + "_ms"] = (ms, tex_ms)
+
+    none, u8 = runs["none"], runs["u8"]
+    if not torch.equal(u8.attr, none.attr):
+        raise AssertionError("config4 u8 attr differs from none on a k/255 texture")
+    unified = pt.render(pt.unify_mesh_uv(split), cam, 1024, 1024, raster_config=cfg,
+                        texture_pack_mode="u8", device=dev, **kw)
+    for f in ("mask", "attr", "pos", "depth", "normal"):
+        if not torch.equal(getattr(runs["split"], f), getattr(unified, f)):
+            raise AssertionError(f"config4 split {f} differs from the unified mesh")
+    split_vs_none = float((runs["split"].attr - none.attr).abs().max())
+    log("texture", "config4: u8 attr bitwise equal to none; split-UV through "
+        f"render's seam cut equal to the unified mesh in every channel (attr "
+        f"vs the unsplit mesh: max abs {split_vs_none})")
+
+    cpu_mesh, cpu_cam = mesh.to("cpu"), cam.to("cpu")
+    ref = pt.render(cpu_mesh, cpu_cam, 1024, 1024, raster_config=cfg,
+                    texture_pack_mode="none", device="cpu", **kw)
+    ids = pt.rasterize_gbuffer(pos, mesh.t_pos_idx, None, (1024, 1024), cfg,
+                               device=dev).tri_id.cpu()
+    ref_ids = pt.rasterize_gbuffer(pos.cpu(), cpu_mesh.t_pos_idx, None,
+                                   (1024, 1024), cfg, device="cpu").tri_id
+    fg = int(ref.mask.sum())
+    mask_diff = int((none.mask.cpu() != ref.mask).sum())
+    id_diff = int((ids != ref_ids).sum())
+    both = none.mask.cpu() & ref.mask
+    errs = {f: float((getattr(none, f).cpu() - getattr(ref, f))[both].abs().max())
+            for f in ("attr", "pos", "normal")}
+    log("texture", f"config4 none vs the port on the CPU (4 views): mask diff "
+        f"{mask_diff}, tri_id diff {id_diff} of {fg}, {errs}")
+    if not (mask_diff <= 1e-4 * fg and id_diff <= 1e-4 * fg and errs["attr"] < 1e-4
+            and errs["pos"] < 1e-4 and errs["normal"] < 5e-4 and fg > 1_000_000
+            and torch.isfinite(none.attr).all()):
+        raise AssertionError("config4 on the card disagrees with the CPU")
+
+    nm = pt.with_normals(mesh)
+    v_attr = torch.cat([nm.v_nrm, nm.v_tex], -1)
+
+    def prep():
+        return gb._k1_inputs(pos, nm.t_pos_idx, v_attr, 1024, 1024, cfg,
+                             pos_world=nm.v_pos, mvp=cam.mvp_mtx)
+
+    inputs, dims = prep()
+    prep_ms = cuda_ms(prep, 5)
+    k1_ms = cuda_ms(lambda: gc.gbuffer_tiles(*inputs, *dims), 20)
+    ms, tex_ms = runs["none_ms"]
+    log("texture", f"config4 none stages ({card}): prep {prep_ms:.4f} ms, K1 "
+        f"{k1_ms:.4f} ms, texture {tex_ms:.4f} ms, the rest "
+        f"{ms - prep_ms - k1_ms - tex_ms:.4f} ms of {ms:.4f} ms")
+    wall, busy, n_kernels, top = profile_ms(
+        lambda: pt.render(mesh, cam, 1024, 1024, raster_config=cfg,
+                          texture_pack_mode="none", device=dev, **kw))
+    if n_kernels:
+        log("profile", f"config4 none: {wall:.3f} ms wall, device busy {busy:.3f} "
+            f"ms ({100 * (1 - busy / wall):.1f}% idle), {n_kernels:.0f} CUDA "
+            "kernels per render")
+        for name, t, count in top:
+            log("profile", f"{t:8.4f} ms {count:5.0f}x {name}")
+    return k1
+
+
+def attr_phase(pt, gc, zc, rk, dev, card) -> dict:
+    """Workload 1 textured with bench.py:587's 512² checker, 6 views at 512²
+    through ``render``: the fused branch with tangents (K2), the classic
+    branch (backend pallas: K4, then interpolate of t_tex_idx) with
+    antialias_attr, and auto_mip; each against the port's CPU run of views
+    0 and 3 (mask within 1e-4 of the foreground, attr 1e-4, pos 1e-4,
+    normal and tangent 5e-4). Returns the launches per kernel."""
+    mesh, cam = sphere_scene(pt, dev, texture=checker(512, 32))
+    cpu_mesh, cpu_cam = mesh.to("cpu"), cam[[0, 3]].to("cpu")
+    launches = {}
+    for name, kernel, kw in (
+            ("fused+tangent", "zattr_tiles", dict(render_tangent=True)),
+            ("classic+antialias", "raster_zid_tiles",
+             dict(raster_config=pt.RasterizerConfig(backend="pallas"),
+                  render_tangent=True, antialias_attr=True)),
+            ("auto_mip", "zattr_tiles", dict(texture_filter_mode="auto_mip"))):
+        def run(kw=kw):
+            return pt.render(mesh, cam, 512, 512, device=dev, **kw)
+        reset_counts(gc, zc, rk)
+        out = run()
+        counts = read_counts(gc, zc, rk)
+        if counts[kernel] < 1:
+            raise AssertionError(f"[attr] {name} did not launch {kernel}")
+        launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+        ref = pt.render(cpu_mesh, cpu_cam, 512, 512, device="cpu", **kw)
+        fg = int(ref.mask.sum())
+        mask = out.mask[[0, 3]].cpu()
+        mask_diff = int((mask != ref.mask).sum())
+        both = mask & ref.mask
+        fields = [("attr", 1e-4), ("pos", 1e-4), ("normal", 5e-4)]
+        if out.tangent is not None:
+            fields.append(("tangent", 5e-4))
+        errs = {f: float((getattr(out, f)[[0, 3]].cpu() - getattr(ref, f))[both]
+                         .abs().max()) for f, _ in fields}
+        ms = cuda_ms(run, 10)
+        log("attr", f"{name}: launches {counts}; vs the port on the CPU (views "
+            f"0, 3): mask diff {mask_diff} of {fg}, {errs}; {ms:.4f} ms = "
+            f"{len(cam) / (ms / 1e3):.2f} views/s ({card})")
+        if not (mask_diff <= 1e-4 * fg and fg > 400_000
+                and all(errs[f] < tol for f, tol in fields)):
+            raise AssertionError(f"[attr] {name}: the card disagrees with the CPU")
+    return launches
+
+
+def chunk_phase(pt, gc, zc, rk, dev, card) -> int:
+    """bench.py:614's config2: uv_sphere_mesh(65, 129), 32 views at 512²,
+    depth and normals, auto_fast_config budgets; view_chunk=8 against the
+    unchunked render on the card (mask equal, the rest within 1e-5), views/s
+    both ways. Returns K1's launches."""
+    verts, faces, uv = pt.uv_sphere_mesh(65, 129)
+    mesh = pt.with_normals(pt.mesh_from_arrays(verts, faces, v_tex=uv,
+                                               t_tex_idx=faces, device=dev))
+    cam = pt.get_camera(elevation_deg=15.0, distance=2.7, fovy_deg=40.0,
+                        num_views=32, near=0.1, far=10.0, device=dev)
+    pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+    cfg = pt.auto_fast_config(pos, mesh.t_pos_idx, (512, 512), base=pt.FAST_TPU_CONFIG)
+    kw = dict(render_attr=False, render_depth=True, render_normal=True,
+              raster_config=cfg, device=dev)
+    reset_counts(gc, zc, rk)
+    chunked = pt.render(mesh, cam, 512, 512, view_chunk=8, **kw)
+    k1 = read_counts(gc, zc, rk)["gbuffer_tiles"]
+    if k1 < 1:
+        raise AssertionError("config2 with view_chunk did not launch K1")
+    whole = pt.render(mesh, cam, 512, 512, **kw)
+    mask_diff = int((chunked.mask != whole.mask).sum())
+    errs = {f: float((getattr(chunked, f) - getattr(whole, f)).abs().max())
+            for f in ("pos", "depth", "normal")}
+    ms_c = cuda_ms(lambda: pt.render(mesh, cam, 512, 512, view_chunk=8, **kw), 3)
+    ms_w = cuda_ms(lambda: pt.render(mesh, cam, 512, 512, **kw), 3)
+    log("chunk", f"config2 (32 views at 512²) view_chunk=8: K1 launches {k1}, "
+        f"vs unchunked mask diff {mask_diff}, {errs}; chunked {ms_c:.4f} ms = "
+        f"{32 / (ms_c / 1e3):.2f} views/s, unchunked {ms_w:.4f} ms = "
+        f"{32 / (ms_w / 1e3):.2f} views/s ({card})")
+    if mask_diff or max(errs.values()) > 1e-5:
+        raise AssertionError("config2 chunked differs from unchunked")
+    return k1
+
+
+def ssaa_phase(pt, gc, zc, rk, dev, card) -> int:
+    """The headline (bench.py:434) at ssaa=2 (1024² inside, budgets sized
+    for it): the float coverage against the port's CPU run of views 0 and 3
+    (summed difference within 1e-4 of the coverage, pos 1e-4 and normals
+    5e-4 where both cover fully). Returns K1's launches."""
+    mesh, cam = headline_scene(pt, dev)
+    pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+    cfg = pt.auto_fast_config(pos, mesh.t_pos_idx, (1024, 1024))
+    kw = dict(render_attr=False, render_depth=False, render_normal=True,
+              raster_config=cfg, ssaa=2)
+    reset_counts(gc, zc, rk)
+    out = pt.render(mesh, cam, 512, 512, device=dev, **kw)
+    k1 = read_counts(gc, zc, rk)["gbuffer_tiles"]
+    if k1 < 1:
+        raise AssertionError("the ssaa render did not launch K1")
+    ref = pt.render(mesh.to("cpu"), cam[[0, 3]].to("cpu"), 512, 512, device="cpu",
+                    **kw)
+    cov = out.mask[[0, 3]].cpu()
+    cover = float(ref.mask.sum())
+    cov_diff = float((cov - ref.mask).abs().sum())
+    full = (cov == 1.0) & (ref.mask == 1.0)
+    errs = {f: float((getattr(out, f)[[0, 3]].cpu() - getattr(ref, f))[full]
+                     .abs().max()) for f in ("pos", "normal")}
+    ms = cuda_ms(lambda: pt.render(mesh, cam, 512, 512, device=dev, **kw), 5)
+    log("ssaa", f"headline at ssaa=2: K1 launches {k1}; vs the port on the CPU "
+        f"(views 0, 3): coverage diff {cov_diff} of {cover}, {errs}; "
+        f"{ms:.4f} ms = {len(cam) / (ms / 1e3):.2f} views/s ({card})")
+    if not (out.mask.dtype == torch.float32 and cov_diff <= 1e-4 * cover
+            and errs["pos"] < 1e-4 and errs["normal"] < 5e-4):
+        raise AssertionError("the ssaa render on the card disagrees with the CPU")
+    return k1
+
+
 def main() -> int:
     # The port must come from the checkout this script sits in (first on
     # sys.path), never from an installed copy: alone in a directory, the
@@ -589,6 +998,8 @@ def main() -> int:
         print(f"chip_smoke: no worldrenderer_tpu_torch package in {root}",
               file=sys.stderr)
         return 1
+    # cuda_ms, the CUDA-event timer every phase uses, is the probes' own.
+    global cuda_ms
     import worldrenderer_tpu_torch as pt
     from worldrenderer_tpu_torch.ops import _build
     from worldrenderer_tpu_torch.ops import gbuffer as gb
@@ -596,10 +1007,12 @@ def main() -> int:
     from worldrenderer_tpu_torch.ops import raster_zid_cuda as rk
     from worldrenderer_tpu_torch.ops import rasterize as pr
     from worldrenderer_tpu_torch.ops import zattr_cuda as zc
+    from worldrenderer_tpu_torch.probes import cuda_ms
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = smi()
     log("env", card)
@@ -608,7 +1021,8 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    libs = ["gbuffer_tiles", "raster_zid_tiles", "zattr_tiles"]
+    libs = ["gbuffer_tiles", "raster_zid_tiles", "zattr_tiles",
+            "probe_chunk_stream", "probe_transpose", "probe_smem_gather"]
     logs = _build.build(libs)  # one nvcc per source, all started together
     log("build", f"{', '.join(libs)} built in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -638,7 +1052,20 @@ def main() -> int:
         max_err = max(max_err, err)
         log("k1", f"{name}: live chunks {int(inputs[3].sum())}, bitwise "
             f"equal to the plain version (max abs err {err})")
+    (c4_k1, c4_dims), (tex_k2, tex_dims) = textured_kernel_inputs(pt, gb, dev)
+    err = k1_against_plain(gc, c4_k1, c4_dims)
+    max_err = max(max_err, err)
+    log("k1", f"config4 (1024², n_vals {c4_dims[0]}): live chunks "
+        f"{int(c4_k1[3].sum())}, bitwise equal to the plain version (max abs "
+        f"err {err})")
     tile_entries = tile_kernel_checks(pt, gb, pr, zc, rk, dev, card)
+    err = bitwise_against_plain("zattr_tiles", zc.zattr_tiles(*tex_k2, *tex_dims),
+                                zc.zattr_tiles_plain(*tex_k2, *tex_dims))
+    tile_entries["zattr_tiles"]["max_abs_err"] = max(
+        tile_entries["zattr_tiles"]["max_abs_err"], err)
+    log("k2", f"sphere_textured (n_vals {tex_dims[0]}): {int(tex_k2[0].shape[0])} "
+        f"tiles, bitwise equal to the plain version (max abs err {err})")
+    probe_entries = probe_checks(head_k1, head_dims, dev, card)
 
     # Phase 4: the main path through render(), launch counts around it.
     kw = dict(render_attr=False, render_depth=False, render_normal=True,
@@ -725,9 +1152,18 @@ def main() -> int:
     tile_launches = tiles_phase(pt, gc, zc, rk, dev, card)
     tile_launches["raster_zid_tiles"] += atlas_phase(pt, gc, zc, rk, dev, card)
     launches += classic_phase(pt, gc, zc, rk, dev, card)
+    # Slice 3's paths, the same way.
+    launches += texture_phase(pt, gb, gc, zc, rk, dev, card)
+    for name, n in attr_phase(pt, gc, zc, rk, dev, card).items():
+        tile_launches[name] += n
+    launches += chunk_phase(pt, gc, zc, rk, dev, card)
+    launches += ssaa_phase(pt, gc, zc, rk, dev, card)
+    for name, n in probes_phase().items():
+        probe_entries[name]["launches"] = n
     for name, entry in tile_entries.items():
         entry["launches"] = tile_launches[name]
 
+    log("time", f"chip_smoke ran {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [{
         "name": "gbuffer_tiles",
@@ -741,7 +1177,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }] + list(tile_entries.values())}))
+    }] + list(tile_entries.values()) + list(probe_entries.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -274,6 +274,17 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pt.rasterize_gbuffer(pos, mesh.t_pos_idx, None, (64, 64))
+    tex = torch.rand(1, 8, 8, 3)
+    uv = torch.rand(1, 4, 4, 2)
+    rast = torch.zeros(1, 4, 4, 4)
+    for call in (lambda: pt.texture(tex, uv),
+                 lambda: pt.texture_construct_mip(tex),
+                 lambda: pt.antialias(tex[:, :4, :4], rast)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert pt.texture(tex, uv, device="cpu").device.type == "cpu"
+    assert len(pt.texture_construct_mip(tex, device="cpu")) == 3
+    assert pt.antialias(tex[:, :4, :4], rast, device="cpu").shape == (1, 4, 4, 3)
     before = gbuffer_cuda.launch_count
     out = pt.render(mesh, cam, 64, 64, render_attr=False, device="cpu")
     assert out.mask.device.type == "cpu" and out.mask.any()
@@ -281,27 +292,21 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_options_raise():
+    # Only the sub-pixel sort path and sub-tile banding (ROADMAP queue 1
+    # item 7) are still to port: on the flat path, below it and on the
+    # classic branch.
     v, f = pt.make_grid_mesh(48)
     mesh = pt.mesh_from_arrays(v, f, device="cpu")
     cam = pt.get_camera(elevation_deg=30.0, distance=3.0, fovy_deg=45.0,
                         device="cpu")
-    for kw in (dict(), dict(render_attr=False, ssaa=2),
-               dict(render_attr=False, view_chunk=1),
-               dict(render_attr=False, render_tangent=True),
-               dict(render_attr=False, antialias_attr=True),
-               dict(render_attr=False,
-                    raster_config=pt.RasterizerConfig(bin_subtile=2)),
-               dict(render_attr=False,
-                    raster_config=pt.RasterizerConfig(bin_tiny_px=1.0))):
-        with pytest.raises(NotImplementedError):
-            pt.render(mesh, cam, 32, 32, device="cpu", **kw)
-    # below bin_sort_pairs_min_tris, and on the classic branch
     small = pt.mesh_from_arrays(*pt.icosphere(1), device="cpu")
-    for cfg in (pt.RasterizerConfig(bin_subtile=2),
-                pt.RasterizerConfig(backend="xla", bin_tiny_px=1.0)):
-        with pytest.raises(NotImplementedError):
-            pt.render(small, cam, 32, 32, render_attr=False, raster_config=cfg,
-                      device="cpu")
+    for m in (mesh, small):
+        for cfg in (pt.RasterizerConfig(bin_subtile=2),
+                    pt.RasterizerConfig(bin_tiny_px=1.0),
+                    pt.RasterizerConfig(backend="xla", bin_tiny_px=1.0)):
+            with pytest.raises(NotImplementedError):
+                pt.render(m, cam, 32, 32, render_attr=False, raster_config=cfg,
+                          device="cpu")
 
 
 def _imports(path: Path):

@@ -4,7 +4,7 @@ Same public API and the same ``RasterizerConfig`` as the JAX package, so
 one config drives both. Entry points run on the card (``cuda``) unless the
 caller passes ``device="cpu"``; the rasterizer's tile passes are
 hand-written CUDA kernels for Hopper (``csrc/``) whose plain PyTorch
-versions run on the CPU.
+versions run on the CPU; so are the measurement probes of ``probes/``.
 """
 
 from .camera import (
@@ -22,11 +22,17 @@ from .convert import camera_from_arrays, config_from_dict, mesh_from_arrays
 from .mesh import (
     TexturedMesh,
     compute_vertex_normals,
+    compute_vertex_tangents,
     icosphere,
+    is_registered_quantized_texture,
     make_grid_mesh,
+    mesh_use_texture,
+    register_quantized_texture,
+    unify_mesh_uv,
     uv_sphere_mesh,
     with_normals,
 )
+from .ops.antialias import antialias
 from .ops.gbuffer import GBufferOutput, rasterize_gbuffer
 from .ops.interpolate import interpolate
 from .ops.rasterize import (
@@ -38,6 +44,7 @@ from .ops.rasterize import (
     rasterize,
     rasterize_db,
 )
+from .ops.texture import texture, texture_construct_mip
 from .render import (
     DepthControlNetNormalization,
     RenderOutput,
@@ -52,10 +59,12 @@ __all__ = [
     "get_orthogonal_camera", "get_orthogonal_projection_matrix",
     "get_projection_matrix", "normalize", "rigid_inverse",
     "camera_from_arrays", "config_from_dict", "mesh_from_arrays",
-    "TexturedMesh", "compute_vertex_normals", "icosphere", "make_grid_mesh",
+    "TexturedMesh", "compute_vertex_normals", "compute_vertex_tangents",
+    "icosphere", "is_registered_quantized_texture", "make_grid_mesh",
+    "mesh_use_texture", "register_quantized_texture", "unify_mesh_uv",
     "uv_sphere_mesh", "with_normals",
-    "GBufferOutput", "rasterize_gbuffer", "interpolate", "rasterize",
-    "rasterize_db",
+    "antialias", "GBufferOutput", "rasterize_gbuffer", "interpolate",
+    "rasterize", "rasterize_db", "texture", "texture_construct_mip",
     "DEFAULT_CONFIG", "FAST_TPU_CONFIG", "RasterizerConfig",
     "auto_fast_config", "binning_stats",
     "DepthControlNetNormalization", "RenderOutput", "SimpleNormalization",

@@ -1,9 +1,10 @@
-"""TexturedMesh, vertex normals, procedural meshes (PyTorch counterpart of
-``worldrenderer_tpu/mesh.py``; host mesh IO and tangents come in a later
-slice)."""
+"""TexturedMesh, vertex normals and tangents, the split-UV seam cut, the
+quantized-texture registry and procedural meshes (PyTorch counterpart of
+``worldrenderer_tpu/mesh.py``; host mesh IO comes in a later slice)."""
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -15,11 +16,22 @@ from .transforms import dot, fma_f32
 __all__ = [
     "TexturedMesh",
     "compute_vertex_normals",
+    "compute_vertex_tangents",
     "with_normals",
+    "mesh_use_texture",
+    "unify_mesh_uv",
+    "register_quantized_texture",
+    "is_registered_quantized_texture",
     "icosphere",
     "make_grid_mesh",
     "uv_sphere_mesh",
 ]
+
+
+def mesh_use_texture(mesh: "TexturedMesh", texture) -> "TexturedMesh":
+    """The mesh with its texture swapped (a new tuple; nothing to
+    restore)."""
+    return mesh._replace(texture=texture)
 
 
 class TexturedMesh(NamedTuple):
@@ -100,12 +112,39 @@ def _normalize_rows(v: torch.Tensor) -> torch.Tensor:
     return (v64 / torch.clamp(norm, min=1e-12)[:, None]).float()
 
 
+def compute_vertex_tangents(
+    v_pos: torch.Tensor,
+    t_pos_idx: torch.Tensor,
+    v_tex: torch.Tensor,
+    t_tex_idx: torch.Tensor,
+    v_nrm: torch.Tensor,
+) -> torch.Tensor:
+    """Per-vertex tangents from UV-space edges: each face's tangent summed
+    onto its vertices in a fixed order, averaged over the vertex's corner
+    count, normalized and made orthogonal to ``v_nrm``."""
+    pos = [v_pos[t_pos_idx[:, i]] for i in range(3)]
+    tex = [v_tex[t_tex_idx[:, i]] for i in range(3)]
+    uve1 = tex[1] - tex[0]
+    uve2 = tex[2] - tex[0]
+    pe1 = pos[1] - pos[0]
+    pe2 = pos[2] - pos[0]
+    nom = pe1 * uve2[..., 1:2] - pe2 * uve1[..., 1:2]
+    denom = uve1[..., 0:1] * uve2[..., 1:2] - uve1[..., 1:2] * uve2[..., 0:1]
+    denom_safe = torch.where(denom > 0.0, torch.clamp(denom, min=1e-6),
+                             torch.clamp(denom, max=-1e-6))
+    tang = nom / denom_safe  # (T, 3)
+
+    n = v_pos.shape[0]
+    tangents = _sum_to_vertices(tang, t_pos_idx, n)
+    tansum = torch.bincount(t_pos_idx.reshape(-1), minlength=n).to(tang.dtype)
+    tangents = tangents / torch.clamp(tansum, min=1.0)[:, None]
+    tangents = _normalize_rows(tangents)
+    return _normalize_rows(tangents - dot(tangents, v_nrm) * v_nrm)
+
+
 def with_normals(mesh: TexturedMesh, compute_tangents: bool = False) -> TexturedMesh:
-    """The mesh with v_nrm filled in, computed on the stitched topology."""
-    if compute_tangents:
-        raise NotImplementedError(
-            "vertex tangents come with textures (ROADMAP queue 1 item 5)"
-        )
+    """The mesh with v_nrm filled in, computed on the stitched topology,
+    and with ``compute_tangents`` v_tang (on the primary topology)."""
     if mesh.stitched_v_pos is None or mesh.stitched_t_pos_idx is None:
         mesh = mesh._replace(
             stitched_v_pos=mesh.v_pos, stitched_t_pos_idx=mesh.t_pos_idx
@@ -116,7 +155,113 @@ def with_normals(mesh: TexturedMesh, compute_tangents: bool = False) -> Textured
                 mesh.stitched_v_pos, mesh.stitched_t_pos_idx
             )
         )
+    if compute_tangents and mesh.v_tang is None:
+        v_nrm = mesh.v_nrm
+        if v_nrm.shape[0] != mesh.v_pos.shape[0]:
+            v_nrm = compute_vertex_normals(mesh.v_pos, mesh.t_pos_idx)
+        mesh = mesh._replace(v_tang=compute_vertex_tangents(
+            mesh.v_pos, mesh.t_pos_idx, mesh.v_tex, mesh.t_tex_idx, v_nrm))
     return mesh
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def unify_mesh_uv(mesh: TexturedMesh) -> TexturedMesh:
+    """Seam-cut a split-UV mesh into unified per-vertex-UV indexing, so it
+    takes the fused branch of ``render``: one output vertex per unique
+    (pos_idx, tex_idx) corner pair, faces in their order. Normals (and
+    tangents) come from the original position topology, where faces across
+    a seam still share vertices, so shading stays smooth across seams; the
+    unified topology is then its own stitched topology.
+
+    The indices are read on the host (a copy from the card for a CUDA mesh)
+    and the result lies on the mesh's device. Meshes already unified are
+    returned unchanged."""
+    if mesh.v_tex is None or mesh.t_tex_idx is None:
+        return mesh
+    pos_idx = _host(mesh.t_pos_idx).astype(np.int64)
+    tex_idx = _host(mesh.t_tex_idx).astype(np.int64)
+    if mesh.v_tex.shape[0] == mesh.v_pos.shape[0] and np.array_equal(
+            pos_idx, tex_idx):
+        return mesh
+    dev = mesh.v_pos.device
+    key = pos_idx.reshape(-1) << 32 | tex_idx.reshape(-1)
+    _, first, inverse = np.unique(key, return_index=True, return_inverse=True)
+    src_pos = torch.from_numpy(pos_idx.reshape(-1)[first]).to(dev)
+    src_tex = torch.from_numpy(tex_idx.reshape(-1)[first]).to(dev)
+    faces = torch.from_numpy(inverse.reshape(-1, 3).astype(np.int64)).to(dev)
+
+    v_nrm = mesh.v_nrm
+    if v_nrm is None or v_nrm.shape[0] != mesh.v_pos.shape[0]:
+        v_nrm = compute_vertex_normals(mesh.v_pos, mesh.t_pos_idx)
+    v_tang = None
+    if mesh.v_tang is not None and mesh.v_tang.shape[0] == mesh.v_pos.shape[0]:
+        v_tang = mesh.v_tang[src_pos]
+    u_pos = mesh.v_pos[src_pos].float()
+    return TexturedMesh(
+        v_pos=u_pos, t_pos_idx=faces, v_tex=mesh.v_tex[src_tex].float(),
+        t_tex_idx=faces, texture=mesh.texture, stitched_v_pos=u_pos,
+        stitched_t_pos_idx=faces, v_nrm=v_nrm[src_pos], v_tang=v_tang,
+    )
+
+
+class _WeakCache:
+    """At most ``cap`` entries keyed by the identity of a few objects and
+    held through weak references: an entry goes when any of its objects is
+    collected, so neither a key's object nor a recycled id outlives it."""
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        self.entries: dict = {}
+
+    def get(self, objs):
+        hit = self.entries.get(tuple(map(id, objs)))
+        if hit is None or any(r() is not o for r, o in zip(hit[0], objs)):
+            return None
+        return hit[1]
+
+    def put(self, objs, value) -> None:
+        key = tuple(map(id, objs))
+
+        def drop(_, key=key):
+            entry = self.entries.get(key)
+            if entry is not None and any(r() is None for r in entry[0]):
+                del self.entries[key]
+
+        if key not in self.entries and len(self.entries) >= self.cap:
+            self.entries.pop(next(iter(self.entries)))
+        self.entries[key] = (tuple(weakref.ref(o, drop) for o in objs), value)
+
+
+# render()'s on-the-fly seam cut, keyed by the caller's mesh tensors (taken
+# before render moves the mesh to its device, which would make new ones).
+_UNIFY_CACHE = _WeakCache(8)
+# Textures whose 255-quantization the caller established on the host, so
+# render's texture_pack_mode="auto" never copies a card tensor back.
+_QUANT_TEX_CACHE = _WeakCache(16)
+
+
+def _unify_cached(mesh: TexturedMesh) -> TexturedMesh:
+    keys = [a for a in (mesh.v_pos, mesh.v_tex, mesh.t_pos_idx,
+                        mesh.t_tex_idx, mesh.v_nrm) if a is not None]
+    hit = _UNIFY_CACHE.get(keys)
+    if hit is None:
+        hit = unify_mesh_uv(mesh)._replace(texture=None)
+        _UNIFY_CACHE.put(keys, hit)
+    return hit._replace(texture=mesh.texture)
+
+
+def register_quantized_texture(tex: torch.Tensor) -> None:
+    """Mark a texture tensor (usually on the card) as exactly
+    255-quantized; the caller verified that on the host-side source. The
+    mark goes when the tensor is collected."""
+    _QUANT_TEX_CACHE.put([tex], True)
+
+
+def is_registered_quantized_texture(tex) -> bool:
+    return _QUANT_TEX_CACHE.get([tex]) is not None
 
 
 # ---------------------------------------------------------------------------

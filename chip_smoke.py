@@ -8,7 +8,17 @@ Phases, one line each; any failure exits nonzero before the last line:
   3. every kernel against its plain PyTorch version on the card, bit for
      bit, at the shapes the main path gives it and on edge-case inputs (the
      probes P1-P3 at their own shapes, P1 also on the headline's chunk
-     runs), with times, bounds and library calls;
+     runs; K1 on exact +0 / -0 ties across a 10-chunk tile; K2 and K3 on
+     exact ties within one lane slot across chunks, at c = 128 and 256; K3
+     on -0 / +0 ties across lane slots, its z's sign held to the TPU
+     kernel's rule; K1, K2 and K3 at a tile width of 96, no power of two;
+     K3 on 64x128 tiles),
+     with times, bounds and library calls; for K1 and K3, the readings
+     that test what bounds them ([k1] balance: the inputs as laid against
+     the same chunks re-laid evenly over the tiles; [k3] reduction: the
+     counts as given against all 0), a run of each wrapper with every
+     device-to-host sync an error ([sync]), and each kernel's registers,
+     shared memory and resident blocks per SM;
   4. the main path — the headline G-buffer render of bench.py:434 (6 views
      at 512², positions + normals, a 10,082-triangle heightfield,
      auto_fast_config budgets) through ``render()`` — with every kernel's
@@ -33,10 +43,16 @@ Phases, one line each; any failure exits nonzero before the last line:
 The second-to-last line is a JSON record of every kernel (launches on the
 main paths, error against the plain version, times, bound); the last line
 is the device summary, printed only when every phase passed.
+
+    python3 chip_smoke.py --k1-k3 ROOT
+
+times only K1 and K3 (``[k1] balance``, ``[k3] reduction``) with the port
+imported from ROOT, to compare two versions on one card (k1_k3_readings).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -56,18 +72,28 @@ PEAK_BYTES = 3.35e12
 # cycle: half the FMA-counted peak. Compares are counted at that rate too,
 # which keeps the bound a least time.
 PEAK_FP32_INSTR = PEAK_FP32_FLOPS / 2
-# fp32 instructions per (entry, pixel) pair in K1's scan: four planes of
-# (2 multiplies + 2 adds) and six compares (e0, e1, e2 >= 0, -1 <= z <= 1,
-# z < zbest).
-K1_OPS_PER_PAIR = 22
+# fp32 instructions per (entry, pixel) pair in K1's scan. A thread's pixels
+# share a row, so each plane's b * ly is one multiply per (entry, row) and a
+# pair costs four planes of (a multiply and two adds); the best z starts
+# just above 1, so z < zbest also tests z <= 1 and a pair makes five
+# compares (e0, e1, e2 >= 0, z >= -1, z < zbest).
+K1_OPS_PER_PAIR = 17
+# fp32 instructions per (entry, row of a tile's pixels) in K1's and K3's
+# scans: the four b-terms.
+OPS_PER_ENTRY_ROW = 4
 # Shared memory serves 32 banks of 4 bytes per clock on each of the 132
 # SMs; the clock is the card's maximum SM clock (nvidia-smi clocks.max.sm).
 SMEM_BYTES_PER_CLOCK_SM = 128
 N_SMS = 132
-# fp32 instructions per (entry, pixel) pair in K2's, K3's and K4's scans:
-# four planes of (a multiply, an FMA and an add; they are built with
-# -fmad=false too, but spell the FMA out) and the same six compares.
+# fp32 instructions per (entry, pixel) pair in K2's and K4's scans: four
+# planes of (a multiply, an FMA and an add; they are built with -fmad=false
+# too, but spell the FMA out; fma(b, ly, a*lx) leaves no b-term to share)
+# and six compares (e0, e1, e2 >= 0, -1 <= z <= 1, z < zbest).
 TILE_OPS_PER_PAIR = 18
+# K3's: its planes are fma(lx, a, ly*b) + g with ly * b shared along a row
+# as in K1, so four planes of (an FMA and an add), and five compares (its
+# best z starts at 1, so z <= zbest also tests z <= 1).
+K3_OPS_PER_PAIR = 13
 
 
 def log(phase: str, msg: str) -> None:
@@ -167,6 +193,150 @@ def synthetic_k1_inputs(device, c=128):
     return inputs, (n_vals, th, tw, n_ty, n_tx, c)
 
 
+def synthetic_k1_tie_inputs(device, c=128):
+    """K1's exact z ties across the chunks of a heavy tile, made from a
+    seed: one view of 2x2 tiles of 16x128; tile 0 holds 10 chunks of random
+    planes behind z = 0.1 and constant planes at z = +0 and -0 (a = b = g =
+    z, so a -0 plane evaluates to -0): on its left half +0 (chunk 1), then
+    -0 (chunk 4), then +0 (chunk 8); on its right half -0 (chunk 2), then
+    +0 (chunk 6), then -0 (chunk 9); on its lower rows three planes at
+    z = -0.5 (chunk 3 lanes 100 and 5, chunk 7 lane 0). The first in list order must win each tie
+    (-0 == +0): chunk 1 lane 7, chunk 2 lane 3 and chunk 3 lane 5. Tile 1
+    is empty, tile 2 holds 9 chunks of random planes, tile 3 one. Returns
+    the inputs ``(recs, ids, start_chunks, n_chunks)`` on ``device``, the
+    static arguments ``(n_vals, tile_h, tile_w, n_ty, n_tx, c)`` and the
+    winning entries ``{name: entry}``."""
+    g = torch.Generator().manual_seed(9)
+    n_vals, th, tw, n_ty, n_tx = 2, 16, 128, 2, 2
+    nch = torch.tensor([[10, 0, 9, 1]], dtype=torch.int32)
+    start = (torch.cumsum(nch, 1) - nch).to(torch.int32)
+    l_cap = (int(nch.sum()) + 2) * c  # two dead chunks past the runs
+    n_rows = 12 + 3 * n_vals
+    recs = torch.zeros((1, n_rows, l_cap))
+    recs[:, 2] = -3.0e38
+    n_live = int(nch.sum()) * c
+    ang = torch.rand(3, n_live, generator=g) * 6.2832
+    cx = torch.rand(3, n_live, generator=g) * tw
+    cy = torch.rand(3, n_live, generator=g) * th
+    for k in range(3):
+        a, bb = torch.cos(ang[k]), torch.sin(ang[k])
+        recs[0, 3 * k, :n_live] = a
+        recs[0, 3 * k + 1, :n_live] = bb
+        recs[0, 3 * k + 2, :n_live] = -(a * cx[k] + bb * cy[k])
+    recs[0, 9, :n_live] = (torch.rand(n_live, generator=g) - 0.5) * 1e-3
+    recs[0, 10, :n_live] = (torch.rand(n_live, generator=g) - 0.5) * 1e-2
+    recs[0, 11, :n_live] = torch.rand(n_live, generator=g) * 0.7 + 0.15
+    recs[0, 12:, :n_live] = torch.randn(3 * n_vals, n_live, generator=g)
+    ids = torch.full((1, l_cap), 10**6, dtype=torch.int32)
+    ids[0, :n_live] = torch.arange(n_live, dtype=torch.int32) * 3 + 500
+
+    def plane(e, z, edge):
+        recs[0, :12, e] = 0.0
+        recs[0, [2, 5, 8], e] = 1.0  # edges 1 and 2 cover the whole tile
+        recs[0, 0:3, e] = torch.tensor(edge)  # edge 0 picks the region
+        recs[0, 11, e] = z
+        if z == 0.0:  # a = b = g = z: a -0 plane evaluates to -0
+            recs[0, 9:11, e] = z
+        recs[0, 12:, e] = torch.randn(3 * n_vals, generator=g)
+
+    left, right, low = (-1.0, 0.0, 64.0), (1.0, 0.0, -64.0), (0.0, 1.0, -8.0)
+    for chunk, lane, z, edge in ((1, 7, 0.0, left), (4, 11, -0.0, left),
+                                 (8, 2, 0.0, left), (2, 3, -0.0, right),
+                                 (6, 9, 0.0, right), (9, 0, -0.0, right),
+                                 (3, 100, -0.5, low), (3, 5, -0.5, low),
+                                 (7, 0, -0.5, low)):
+        plane(chunk * c + lane, z, edge)
+    winners = {"+0 first": 1 * c + 7, "-0 first": 2 * c + 3,
+               "-0.5 first": 3 * c + 5}
+    inputs = tuple(t.to(device) for t in (recs, ids, start, nch))
+    return inputs, (n_vals, th, tw, n_ty, n_tx, c), winners
+
+
+def tie_tile_blocks(seed, c, n_vals, z_lo, z_span, ties, counts):
+    """Per-tile blocks of 4 tiles of 16x128, K = 3c + 44 entries, made from
+    ``seed``: random planes at z in [z_lo, z_lo + z_span) with ids 3e +
+    10000, and for each tile t the full-tile constant planes ``ties[t]``,
+    (chunk, slot, z, id) at entry e = chunk * c + slot. A zero z is the
+    plane a = b = g = z, so a -0 plane evaluates to -0. ``counts`` are the
+    tiles' live entries. Returns ``(coeffs (4, 3, (5 + n_vals) * K), counts
+    (4,) i32)`` on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    n_tiles, k, th, tw = 4, 3 * c + 44, 16, 128
+    r = 5 + n_vals
+    co = torch.zeros((n_tiles, 3, r, k))
+    ang = torch.rand(n_tiles, 3, k, generator=g) * 6.2832
+    cx = torch.rand(n_tiles, 3, k, generator=g) * tw
+    cy = torch.rand(n_tiles, 3, k, generator=g) * th
+    for e in range(3):
+        a, b = torch.cos(ang[:, e]), torch.sin(ang[:, e])
+        co[:, 0, e], co[:, 1, e] = a, b
+        co[:, 2, e] = -(a * cx[:, e] + b * cy[:, e])
+    co[:, 0, 3] = (torch.rand(n_tiles, k, generator=g) - 0.5) * 1e-3
+    co[:, 1, 3] = (torch.rand(n_tiles, k, generator=g) - 0.5) * 1e-2
+    co[:, 2, 3] = torch.rand(n_tiles, k, generator=g) * z_span + z_lo
+    co[:, 2, 4] = (torch.arange(k, dtype=torch.float32) * 3 + 10000)[None]
+    co[:, :, 5:] = torch.randn(n_tiles, 3, n_vals, k, generator=g)
+    for t, planes in ties.items():
+        for chunk, slot, z, tid in planes:
+            e = chunk * c + slot
+            co[t, :, :4, e] = 0.0
+            co[t, 2, :3, e] = 1.0  # covers the whole tile
+            co[t, 2, 3, e] = z
+            if z == 0.0:
+                co[t, :, 3, e] = z
+            co[t, 2, 4, e] = float(tid)
+    return (co.reshape(n_tiles, 3, r * k).contiguous(),
+            torch.tensor(counts, dtype=torch.int32))
+
+
+def slot_tie_tile_inputs(device, c=128, n_vals=2):
+    """K2's and K3's exact z ties within one lane slot across chunks
+    (``tie_tile_blocks``, seed 13, random planes at z in [-0.7, 0.8)), with
+    ids that do not follow list order (e = chunk * c + slot):
+      tile 0: z -0.99 at (0, 10) id 600, (1, 10) id 500, (1, 20) id 550;
+        K3 keeps (0, 10) in slot 10, so (1, 20) wins; K2 takes (0, 10);
+      tile 1: z -0.9 at (0, 3) id 100, z -0.99 at (1, 7) id 900 and
+        (2, 3) id 50; slot 3 reaches -0.99 only in chunk 2, so K3 takes
+        (2, 3); K2 (1, 7);
+      tile 2: z -0.99 at (0, 5) id 700, (1, 9) id 800, (2, 5) id 10; slot 5
+        keeps (0, 5), which wins for both;
+      tile 3: count 2c + 1, z -0.99 at (0, 40) id 300 and (1, 40) id 200;
+        K3 keeps (0, 40); K2 too.
+    Returns ``(coeffs, counts)`` on ``device`` and the winning entries
+    ``{kernel: [entry per tile]}``."""
+    ties = {0: [(0, 10, -0.99, 600), (1, 10, -0.99, 500), (1, 20, -0.99, 550)],
+            1: [(0, 3, -0.9, 100), (1, 7, -0.99, 900), (2, 3, -0.99, 50)],
+            2: [(0, 5, -0.99, 700), (1, 9, -0.99, 800), (2, 5, -0.99, 10)],
+            3: [(0, 40, -0.99, 300), (1, 40, -0.99, 200)]}
+    k = 3 * c + 44
+    out = tie_tile_blocks(13, c, n_vals, -0.7, 1.5, ties, [k, k, k, 2 * c + 1])
+    winners = {"zattr_tiles_vpu": [c + 20, 2 * c + 3, 5, 40],
+               "zattr_tiles": [10, c + 7, 5, 40]}
+    return tuple(t.to(device) for t in out), winners
+
+
+def zero_sign_tile_inputs(device, c=128, n_vals=2):
+    """K3's exact ties at z = -0 and +0 across lane slots
+    (``tie_tile_blocks``, seed 17, random planes at z in [0.1, 0.9)):
+      tile 0: +0 at (0, 10) id 600, -0 at (0, 20) id 700;
+      tile 1: -0 at (0, 10) id 600, +0 at (1, 20) id 500;
+      tile 2: +0 at (0, 10) id 600, -0 at (1, 10) id 500 (slot 10 keeps
+        its +0);
+      tile 3: tile 2's planes and -0 at (1, 30) id 800.
+    The TPU kernel's cross-slot jnp.min orders -0 below +0, so its z is -0
+    where some slot's running z is -0 (tiles 0, 1 and 3) and +0 in tile 2.
+    Returns ``(coeffs, counts)`` on ``device``, the winning entries
+    ``{kernel: [entry per tile]}`` and the sign bit of z per tile."""
+    ties = {0: [(0, 10, 0.0, 600), (0, 20, -0.0, 700)],
+            1: [(0, 10, -0.0, 600), (1, 20, 0.0, 500)],
+            2: [(0, 10, 0.0, 600), (1, 10, -0.0, 500)],
+            3: [(0, 10, 0.0, 600), (1, 10, -0.0, 500), (1, 30, -0.0, 800)]}
+    out = tie_tile_blocks(17, c, n_vals, 0.1, 0.8, ties, [3 * c + 44] * 4)
+    winners = {"zattr_tiles_vpu": [10, c + 20, 10, 10],
+               "zattr_tiles": [10, 10, 10, 10]}
+    return tuple(t.to(device) for t in out), winners, [True, True, False, True]
+
+
 def synthetic_tile_inputs(device, n_vals=2):
     """K2, K3 and K4's edge cases, made from a seed: 4 tiles of 16x128, K =
     300 entries (not a multiple of the 128-entry chunk, so the padding
@@ -211,6 +381,15 @@ def synthetic_tile_inputs(device, n_vals=2):
     return tuple(t.contiguous().to(device) for t in out)
 
 
+def same_bits(a, b) -> bool:
+    """Whether two tensors hold the same bits (torch.equal counts -0 equal
+    to +0, and a NaN unequal to itself)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    return torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                       b.contiguous().reshape(-1).view(torch.uint8))
+
+
 def k1_against_plain(gc, inputs, dims) -> float:
     """Kernel and plain version on the same card inputs; raises unless z,
     id and vals are bitwise equal. Returns the max abs difference."""
@@ -219,7 +398,7 @@ def k1_against_plain(gc, inputs, dims) -> float:
     want = gc.gbuffer_tiles_plain(*inputs, *dims)
     err = 0.0
     for name, a, b in zip(("z", "id", "vals"), got, want):
-        same = torch.equal(a, b)
+        same = same_bits(a, b)
         fin = torch.isfinite(a.float()) & torch.isfinite(b.float())
         d = (a.float() - b.float()).abs()[fin]
         err = max(err, float(d.max()) if d.numel() else 0.0)
@@ -231,15 +410,15 @@ def k1_against_plain(gc, inputs, dims) -> float:
 
 def k1_bound_ms(inputs, dims) -> tuple:
     """Least time the card could take for K1's work on these inputs: the
-    larger of the live (entry, pixel) pairs' unfused fp32 instructions over
-    the card's fp32 instruction rate and the bytes it must move (each live
-    record and id read once, each output written once) over the memory
-    rate."""
+    larger of the live (entry, pixel) pairs' unfused fp32 instructions (and
+    the b-terms of each live entry and tile row) over the card's fp32
+    instruction rate and the bytes it must move (each live record and id
+    read once, each output written once) over the memory rate."""
     recs, ids, start, nch = inputs
     n_vals, th, tw, n_ty, n_tx, c = dims
     live_chunks = int(nch.sum())
-    pairs = live_chunks * c * th * tw
-    ops_ms = pairs * K1_OPS_PER_PAIR / PEAK_FP32_INSTR * 1e3
+    ops = live_chunks * c * th * (tw * K1_OPS_PER_PAIR + OPS_PER_ENTRY_ROW)
+    ops_ms = ops / PEAK_FP32_INSTR * 1e3
     n_out = recs.shape[0] * n_ty * th * n_tx * tw
     nbytes = (live_chunks * c * (recs.shape[1] + 1) * 4 + 2 * nch.numel() * 4
               + n_out * (2 + n_vals) * 4)
@@ -247,6 +426,65 @@ def k1_bound_ms(inputs, dims) -> tuple:
     if ops_ms >= bytes_ms:
         return ops_ms, "operations", live_chunks
     return bytes_ms, "bytes", live_chunks
+
+
+def relaid_runs(start, nch):
+    """The same live chunks of each view re-laid in list order, at most
+    ceil(live / tiles) to a tile: new start_chunks and n_chunks, nothing
+    else. The runs K1 is given are packed from chunk 0 (start = exclusive
+    cumsum of n), so the re-laid runs cover the same chunks."""
+    n_tiles = nch.shape[1]
+    live = nch.sum(1, keepdim=True)
+    per = (live + n_tiles - 1) // n_tiles
+    t = torch.arange(n_tiles, device=nch.device)
+    n = torch.minimum((live - t * per).clamp(min=0), per).to(torch.int32)
+    return (torch.cumsum(n, 1) - n).to(torch.int32).contiguous(), n.contiguous()
+
+
+def k1_balance(gc, inputs, dims, card, what) -> tuple:
+    """K1 on its inputs as laid and on the same live chunks re-laid evenly
+    over the tiles (``relaid_runs``): if the even run is much faster, the
+    tile of most chunks sets the launch's time. Returns both times."""
+    recs, ids, start, nch = inputs
+    even = (recs, ids, *relaid_runs(start, nch))
+    ms = cuda_ms(lambda: gc.gbuffer_tiles(*inputs, *dims), 50)
+    ms_even = cuda_ms(lambda: gc.gbuffer_tiles(*even, *dims), 50)
+    log("k1", f"balance ({what}, {card}): as laid {ms:.4f} ms (at most "
+        f"{int(nch.max())} chunks in a tile, {int(nch.sum())} live), re-laid at "
+        f"most {int(even[3].max())} to a tile {ms_even:.4f} ms, ratio "
+        f"{ms / ms_even:.3f}")
+    return ms, ms_even
+
+
+def k3_reduction(zc, inputs, dims, card) -> tuple:
+    """K3 on workload 1's blocks as given and with every count set to 0,
+    which leaves the kernel everything but the scan (the old kernel's
+    sub-block loop, barriers and cross-slot reduction). Returns both
+    times."""
+    co, counts = inputs
+    zero = torch.zeros_like(counts)
+    ms = cuda_ms(lambda: zc.zattr_tiles_vpu(co, counts, *dims), 20)
+    ms0 = cuda_ms(lambda: zc.zattr_tiles_vpu(co, zero, *dims), 20)
+    log("k3", f"reduction (workload 1, {card}): counts as given {ms:.4f} ms, "
+        f"every count 0 (no scan) {ms0:.4f} ms")
+    return ms, ms0
+
+
+def without_sync(fn):
+    """``fn()`` with every device-to-host synchronisation an error, so a
+    wrapper that waits on the card fails the run."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def log_occupancy(tag, occ, c) -> None:
+    log(tag, f"occupancy: {occ['registers']} registers per thread, "
+        f"{occ['shared_bytes']} B shared memory per block (c {c}), "
+        f"{occ['blocks_per_sm']} resident blocks of 256 threads per SM")
 
 
 def sphere_scene(pt, device, views=6, texture=None):
@@ -268,19 +506,22 @@ def atlas_clip(mesh):
                       torch.ones_like(uv[:, :1])], dim=1)[None]
 
 
-def tile_bound_ms(counts, tile_h, tile_w, chunk, scan_words, out_words):
+def tile_bound_ms(counts, tile_h, tile_w, chunk, scan_words, out_words,
+                  ops_per_pair=TILE_OPS_PER_PAIR, ops_per_row=0):
     """Least time the card could take for a K2, K3 or K4 launch on these
     inputs: the larger of the scanned (entry, pixel) pairs' fp32
-    instructions over the card's fp32 instruction rate and the bytes it
-    must move (each scanned entry's scan words read once, the counts read,
-    each output written once) over the memory rate. Each tile scans
+    instructions (``ops_per_pair``, plus ``ops_per_row`` per entry and tile
+    row) over the card's fp32 instruction rate and the bytes it must move
+    (each scanned entry's scan words read once, the counts read, each
+    output written once) over the memory rate. Each tile scans
     ceil(count / c) chunks of c entries."""
     from worldrenderer_tpu_torch.ops.tensor import chunk_size
 
     c = chunk_size(chunk)
     live = int(((counts.long().clamp(min=0) + (c - 1)) // c).sum())
     p = tile_h * tile_w
-    ops_ms = live * c * p * TILE_OPS_PER_PAIR / PEAK_FP32_INSTR * 1e3
+    ops = live * c * (p * ops_per_pair + tile_h * ops_per_row)
+    ops_ms = ops / PEAK_FP32_INSTR * 1e3
     n_tiles = counts.numel()
     nbytes = live * c * scan_words * 4 + n_tiles * 4 + n_tiles * p * out_words * 4
     bytes_ms = nbytes / PEAK_BYTES * 1e3
@@ -298,10 +539,41 @@ def bitwise_against_plain(what, got, want) -> float:
         fin = torch.isfinite(a.float()) & torch.isfinite(b.float())
         d = (a.float() - b.float()).abs()[fin]
         err = max(err, float(d.max()) if d.numel() else 0.0)
-        if not torch.equal(a, b):
+        if not same_bits(a, b):
             raise AssertionError(f"{what} differs from the plain version "
                                  f"(max abs {err})")
     return err
+
+
+def zero_sign_check(kernel, plain, dev) -> None:
+    """K3 on ``zero_sign_tile_inputs``: ids and values bitwise equal to the
+    plain version, z equal in value, and z's sign that of the TPU kernel's
+    cross-slot jnp.min (-0 where any slot's running z is -0). The plain
+    version's torch.amin leaves that sign to its reduction order, so z's
+    bits are held to the TPU kernel's rule here, not to the plain
+    version."""
+    (co, counts), winners, signs = zero_sign_tile_inputs(dev)
+    dims = (2, 16, 128, 128)
+    got = kernel(co, counts, *dims)
+    want = plain(co, counts, *dims)
+    bitwise_against_plain("zattr_tiles_vpu", got[1:], want[1:])
+    k = co.shape[2] // 7
+    tid = co.reshape(4, 3, 7, k)[:, 2, 4]
+    win = torch.tensor(winners["zattr_tiles_vpu"], device=dev)
+    want_ids = tid[torch.arange(4, device=dev), win]
+    if not (torch.equal(got[0], want[0]) and (got[0] == 0).all()
+            and torch.equal(got[1], want_ids[:, None, None].expand_as(got[1]))):
+        raise AssertionError("zattr_tiles_vpu zero_signs: wrong z or winners")
+    neg = torch.signbit(got[0]).flatten(1)
+    for t, sign in enumerate(signs):
+        if not (neg[t] == sign).all():
+            raise AssertionError(f"zattr_tiles_vpu zero_signs: tile {t}'s z is "
+                                 f"not {'-0' if sign else '+0'}")
+    plain_neg = torch.signbit(want[0]).flatten(1).float().mean(1).tolist()
+    log("k3", f"zero_signs: ids and values bitwise equal to the plain version, "
+        f"z equal in value; z per tile {['-0' if n else '+0' for n in signs]} "
+        f"as the TPU kernel's jnp.min gives it (the plain version's torch.amin:"
+        f" share of -0 per tile {plain_neg})")
 
 
 def reset_counts(gc, zc, rk) -> None:
@@ -333,6 +605,8 @@ def tile_kernel_checks(pt, gb, pr, zc, rk, dev, card) -> dict:
     kdims = (cfg.tile_h, cfg.tile_w, cfg.chunk)
     co, co4, ids, counts = synthetic_tile_inputs(dev)
     sdims = (2, 16, 128, 128)
+    ties, winners = slot_tie_tile_inputs(dev)
+    ties256, winners256 = slot_tie_tile_inputs(dev, c=256)
     entries = {}
     for name, tag, src, replaces in (
         ("zattr_tiles", "k2", "zattr_tiles.cu", "gbuffer_pallas.py:290"),
@@ -341,19 +615,42 @@ def tile_kernel_checks(pt, gb, pr, zc, rk, dev, card) -> dict:
         kernel = getattr(zc, name)
         plain = getattr(zc, f"{name}_plain")
         err = 0.0
-        for case, inputs, dims in (("sphere_512", zin, zdims),
-                                   ("synthetic", (co, counts), sdims)):
-            e = bitwise_against_plain(name, kernel(*inputs, *dims),
-                                      plain(*inputs, *dims))
+        cases = [("sphere_512", zin, zdims, None),
+                 ("synthetic", (co, counts), sdims, None),
+                 ("synthetic_w96", (co, counts), (2, 16, 96, 128), None),
+                 ("synthetic_c256", (co, counts), sdims[:3] + (256,), None),
+                 ("slot_ties", ties, sdims, winners[name]),
+                 ("slot_ties_c256", ties256, sdims[:3] + (256,), winners256[name])]
+        if name == "zattr_tiles_vpu":  # K3 takes tiles of any size, K2 4,096 pixels
+            cases.append(("synthetic_64x128", (co, counts), (2, 64, 128, 128), None))
+        for case, inputs, dims, win in cases:
+            got = kernel(*inputs, *dims)
+            e = bitwise_against_plain(name, got, plain(*inputs, *dims))
             err = max(err, e)
+            if win is not None:  # each tile's winner spans the whole tile
+                k = inputs[0].shape[2] // (5 + dims[0])
+                tid = inputs[0].reshape(4, 3, 5 + dims[0], k)[:, 2, 4]
+                want = tid[torch.arange(4, device=dev), torch.tensor(win, device=dev)]
+                if not torch.equal(got[1], want[:, None, None].expand_as(got[1])):
+                    raise AssertionError(f"{name} {case}: wrong tie winners")
             log(tag, f"{case}: {int(inputs[0].shape[0])} tiles, bitwise equal "
                 f"to the plain version (max abs err {e})")
+        if name == "zattr_tiles_vpu":
+            zero_sign_check(kernel, plain, dev)
         ms = cuda_ms(lambda: kernel(*zin, *zdims), 20)
         plain_ms = cuda_ms(lambda: plain(*zin, *zdims), 2)
+        ops = ((K3_OPS_PER_PAIR, OPS_PER_ENTRY_ROW) if name == "zattr_tiles_vpu"
+               else (TILE_OPS_PER_PAIR, 0))
         bound, by, live = tile_bound_ms(zin[1], zdims[1], zdims[2], zdims[3],
-                                        13, 2 + zdims[0])
+                                        13, 2 + zdims[0], *ops)
         log(tag, f"workload 1 ({card}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound:.5f} ms by {by} ({live} live chunks)")
+        if name == "zattr_tiles_vpu":
+            k3_reduction(zc, zin, zdims, card)
+            without_sync(lambda: kernel(*zin, *zdims))
+            log("sync", "K3's wrapper ran under set_sync_debug_mode('error'): "
+                "no device-to-host sync")
+            log_occupancy("k3", zc.vpu_occupancy(zdims[3], zdims[2]), zdims[3])
         entries[name] = dict(
             name=name, route="cuda", source=f"worldrenderer_tpu_torch/csrc/{src}",
             replaces=f"worldrenderer_tpu/ops/{replaces}", launches=0,
@@ -989,7 +1286,54 @@ def ssaa_phase(pt, gc, zc, rk, dev, card) -> int:
     return k1
 
 
+def k1_k3_readings(port_root: Path) -> int:
+    """``python3 chip_smoke.py --k1-k3 ROOT``: only K1's ``[k1] balance``
+    (headline and config4) and K3's ``[k3] reduction``, with the port
+    imported from ROOT, a directory that holds a ``worldrenderer_tpu_torch``
+    package (such as a parent commit unpacked by ``git archive`` into a
+    git-ignored directory). Two versions are compared in turns on one card:
+    ``for d in _parent . . _parent; do python3 chip_smoke.py --k1-k3 $d;
+    done``; their ``[k1k3] digest`` lines, of the kernels' output bits, must
+    agree."""
+    global cuda_ms
+    sys.path.insert(0, str(port_root.resolve()))
+    import worldrenderer_tpu_torch as pt
+    from worldrenderer_tpu_torch.ops import gbuffer as gb
+    from worldrenderer_tpu_torch.ops import gbuffer_cuda as gc
+    from worldrenderer_tpu_torch.ops import zattr_cuda as zc
+    from worldrenderer_tpu_torch.probes import cuda_ms
+
+    if Path(pt.__file__).resolve().parent.parent != port_root.resolve():
+        print(f"chip_smoke: the port was not imported from {port_root}",
+              file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = smi()
+    log("env", f"{card}; the port from {port_root}")
+    mesh, cam = headline_scene(pt, dev)
+    (head, hdims), _ = k1_inputs_for(pt, gb, mesh, cam, 512)
+    (c4, c4dims), _ = textured_kernel_inputs(pt, gb, dev)
+    sph, scam = sphere_scene(pt, dev)
+    spos = pt.get_clip_space_position(sph.v_pos, scam.mvp_mtx)
+    zin, zdims = gb._zattr_inputs(spos, sph.t_pos_idx, sph.v_nrm, 512, 512,
+                                  pt.DEFAULT_CONFIG)
+    k1_balance(gc, head, hdims, card, "headline")
+    k1_balance(gc, c4, c4dims, card, "config4")
+    k3_reduction(zc, zin, zdims, card)
+    h = hashlib.sha256()
+    for t in (*gc.gbuffer_tiles(*head, *hdims), *gc.gbuffer_tiles(*c4, *c4dims),
+              *zc.zattr_tiles_vpu(*zin, *zdims)):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    log("k1k3", f"digest of K1's and K3's outputs {h.hexdigest()[:16]}")
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--k1-k3":
+        return k1_k3_readings(Path(sys.argv[2]))
     # The port must come from the checkout this script sits in (first on
     # sys.path), never from an installed copy: alone in a directory, the
     # script fails.
@@ -1038,6 +1382,7 @@ def main() -> int:
     assert big_mesh.num_faces == 69_938
     big_k1, big_dims = k1_inputs_for(pt, gb, big_mesh, big_cam, 1024)[0]
     syn_k1, syn_dims = synthetic_k1_inputs(dev)
+    tie_k1, tie_dims, tie_winners = synthetic_k1_tie_inputs(dev)
     # Workload 3's K1 inputs: classic rasterize's uv mode at DEFAULT_CONFIG
     # (tiles of 32x128, so the 16-pixels-per-thread instance).
     uv_k1, uv_dims = gb._k1_inputs(
@@ -1047,6 +1392,11 @@ def main() -> int:
     for name, inputs, dims in (("headline", head_k1, head_dims),
                                ("grid188_1024", big_k1, big_dims),
                                ("synthetic", syn_k1, syn_dims),
+                               # a width that is no power of two: the kernel
+                               # instance with a pixel per group per thread
+                               ("synthetic_w96", syn_k1,
+                                syn_dims[:2] + (96,) + syn_dims[3:]),
+                               ("ties", tie_k1, tie_dims),
                                ("classic_uv", uv_k1, uv_dims)):
         err = k1_against_plain(gc, inputs, dims)
         max_err = max(max_err, err)
@@ -1058,6 +1408,24 @@ def main() -> int:
     log("k1", f"config4 (1024², n_vals {c4_dims[0]}): live chunks "
         f"{int(c4_k1[3].sum())}, bitwise equal to the plain version (max abs "
         f"err {err})")
+    tie_ids = gc.gbuffer_tiles(*tie_k1, *tie_dims)[1][0, :16, :128].cpu()
+    for what, rows, cols in (("+0 first", slice(0, 8), slice(0, 64)),
+                             ("-0 first", slice(0, 8), slice(64, 128)),
+                             ("-0.5 first", slice(8, 16), slice(0, 128))):
+        if not (tie_ids[rows, cols] == int(tie_k1[1][0, tie_winners[what]])).all():
+            raise AssertionError(f"K1 ties: {what} lost its tie")
+    log("k1", "ties: +0 then -0, -0 then +0 and -0.5 ties across a 10-chunk "
+        "tile each keep the first entry in list order")
+    k1_balance(gc, head_k1, head_dims, card, "headline")
+    k1_balance(gc, c4_k1, c4_dims, card, "config4")
+    c4_ms = cuda_ms(lambda: gc.gbuffer_tiles(*c4_k1, *c4_dims), 50)
+    c4_bound, c4_by, c4_live = k1_bound_ms(c4_k1, c4_dims)
+    log("k1", f"config4 ({card}): {c4_ms:.4f} ms, bound {c4_bound:.5f} ms by "
+        f"{c4_by} ({c4_live} live chunks)")
+    without_sync(lambda: gc.gbuffer_tiles(*head_k1, *head_dims))
+    log("sync", "K1's wrapper ran under set_sync_debug_mode('error'): no "
+        "device-to-host sync")
+    log_occupancy("k1", gc.occupancy(head_dims[5], head_dims[2]), head_dims[5])
     tile_entries = tile_kernel_checks(pt, gb, pr, zc, rk, dev, card)
     err = bitwise_against_plain("zattr_tiles", zc.zattr_tiles(*tex_k2, *tex_dims),
                                 zc.zattr_tiles_plain(*tex_k2, *tex_dims))

@@ -23,7 +23,7 @@ from worldrenderer_tpu_torch.ops import gbuffer as pg
 from worldrenderer_tpu_torch.ops import gbuffer_cuda as pc
 from worldrenderer_tpu_torch.ops import rasterize as pr
 
-from chip_smoke import synthetic_k1_inputs
+from chip_smoke import synthetic_k1_inputs, synthetic_k1_tie_inputs
 from test_torch_port_raster import (
     _BIN_CASES, _FAST, _bin_args, _np, _scene, _setups, jr,
 )
@@ -145,6 +145,54 @@ def test_gbuffer_tiles_plain_matches_jax_kernel(scene, cfg):
     covb = np.broadcast_to(cov[:, None], den.shape[:1] + (n_vals - 1,) + den.shape[2:])
     np.testing.assert_allclose((vals[:, :-1] / den)[covb],
                                (jvals[:, :-1] / jden)[covb], atol=5e-4)
+
+
+def _jax_from_recs(recs, ids, n_vals, c=128):
+    """K1's inputs in the JAX kernel's layout, the inverse of
+    ``_recs_from_jax``: planes_flat (B, 4 coef, NCH*4c) per chunk
+    [e0|e1|e2|z] with a zero fourth coefficient row, and sel_flat
+    (B, m_pad, NCH*c) rows [id hi, id lo, z a,b,g, (a,b,g) per value]."""
+    recs, ids = _np(recs), _np(ids).astype(np.int64)
+    bsz, _, l_cap = recs.shape
+    nch = l_cap // c
+    geo = np.zeros((bsz, 4, 4, nch, c), np.float32)  # (B, blk, coef, NCH, c)
+    geo[:, :, :3] = recs[:, :12].reshape(bsz, 4, 3, nch, c)
+    planes = geo.transpose(0, 2, 3, 1, 4).reshape(bsz, 4, nch * 4 * c)
+    m_sel = 5 + 3 * n_vals
+    sel = np.zeros((bsz, -(-m_sel // 8) * 8, l_cap), np.float32)
+    sel[:, 0], sel[:, 1] = ids // 256, ids % 256
+    sel[:, 2:5] = recs[:, 9:12]
+    sel[:, 5:m_sel] = recs[:, 12:]
+    return jnp.asarray(planes), jnp.asarray(sel)
+
+
+def test_gbuffer_tiles_plain_matches_jax_kernel_on_ties():
+    """K1's plain version against the JAX kernel (interpret mode) on the
+    heavy tile of exact ties across chunks: +0 then -0 then +0, -0 then +0
+    then -0, and three -0.5 planes over 10 chunks. Both keep the first
+    entry in list order: ids bit for bit; z and values within the
+    tolerances of the scene test above (the JAX kernel evaluates the
+    winner's planes as a dot, which rounds otherwise)."""
+    (recs, ids, start, nch), dims, winners = synthetic_k1_tie_inputs("cpu")
+    n_vals, tile_h, tile_w, n_ty, n_tx, c = dims
+    planes_flat, sel_flat = _jax_from_recs(recs, ids, n_vals, c)
+    ref_recs, ref_ids = _recs_from_jax(planes_flat, sel_flat, n_vals, c)
+    assert torch.equal(ref_recs, recs) and torch.equal(ref_ids, ids)
+    jz, jid, jvals = jp.gbuffer_tiles_dma(
+        planes_flat, sel_flat, jnp.asarray(_np(start)), jnp.asarray(_np(nch)),
+        n_vals, tile_h, tile_w, n_ty, n_tx, c, jax.lax.Precision.HIGHEST, 1,
+        "vpu")
+    z, idm, vals = pc.gbuffer_tiles_plain(recs, ids, start, nch, *dims)
+    np.testing.assert_array_equal(_np(idm).astype(np.int64),
+                                  _np(jid).astype(np.int64))
+    np.testing.assert_array_equal(np.isfinite(_np(z)), np.isfinite(_np(jz)))
+    cov = np.isfinite(_np(jz))
+    np.testing.assert_allclose(_np(z)[cov], _np(jz)[cov], atol=1e-5)
+    np.testing.assert_allclose(_np(vals), _np(jvals), atol=5e-4)
+    tile = _np(idm)[0, :16, :128]
+    assert (tile[:8, :64] == int(ids[0, winners["+0 first"]])).all()
+    assert (tile[:8, 64:] == int(ids[0, winners["-0 first"]])).all()
+    assert (tile[8:] == int(ids[0, winners["-0.5 first"]])).all()
 
 
 def test_gbuffer_tiles_plain_tie_rule_and_empty_tiles():

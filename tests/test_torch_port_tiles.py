@@ -69,7 +69,11 @@ from worldrenderer_tpu_torch.ops import raster_zid_cuda as pk
 from worldrenderer_tpu_torch.ops import rasterize as pr
 from worldrenderer_tpu_torch.ops import zattr_cuda as pz
 
-from chip_smoke import synthetic_tile_inputs
+from chip_smoke import (
+    slot_tie_tile_inputs,
+    synthetic_tile_inputs,
+    zero_sign_tile_inputs,
+)
 
 # `worldrenderer_tpu.ops` re-exports functions named like the modules.
 jr = sys.modules["worldrenderer_tpu.ops.rasterize"]
@@ -266,30 +270,53 @@ def test_raster_zid_plain_matches_jax_kernel(name):
         assert np.isinf(_np(z)[1]).all()
 
 
-@pytest.mark.parametrize("name", ["icosphere", "grid45", "synthetic"])
+@pytest.mark.parametrize("name", ["icosphere", "grid45", "synthetic",
+                                  "slot_ties", "slot_ties_c256", "zero_signs"])
 @pytest.mark.parametrize("kernel", ["zattr_tiles", "zattr_tiles_vpu"])
 def test_zattr_plain_matches_jax_kernel(kernel, name):
     """K2's and K3's plain versions against ``zattr_tiles_pallas`` (exact
     fp32 dot) and ``zattr_tiles_vpu`` (interpret mode) on the same blocks:
     z, ids and values bit for bit. In the synthetic case's ties K2 takes
     the least id of the first chunk that reaches the least z, K3 the least
-    id over all lane slots."""
+    id over all lane slots. In the slot-tie cases (c = 128 and 256) a lane
+    slot that reached the least z keeps that entry against a later one of
+    smaller id in the same slot. At -0 / +0 ties across slots (zero_signs)
+    z agrees in value, and K3's TPU kernel gives -0 wherever a slot holds
+    -0 (jnp.min orders -0 first), the rule the CUDA kernel keeps."""
     n_vals = 2
+    chunk = 128
+    winners = None
     if name == "synthetic":
         co, _, ids, counts, (th, tw) = _synthetic()
+    elif name.startswith("slot_ties"):
+        chunk = 256 if name.endswith("c256") else 128
+        (co, counts), winners = slot_tie_tile_inputs("cpu", chunk)
+        th, tw = 16, 128
+    elif name == "zero_signs":
+        (co, counts), winners, signs = zero_sign_tile_inputs("cpu")
+        th, tw = 16, 128
     else:
         (_, co, _, counts), _, (th, tw) = _tile_blocks(name, n_vals - 1)
         co, counts = (torch.from_numpy(np.ascontiguousarray(x))
                       for x in (co, counts))
     jfn = j_zattr if kernel == "zattr_tiles" else j_zattr_vpu
-    ref = jfn(jnp.asarray(_np(co)), jnp.asarray(_np(counts)), n_vals, th, tw, 128)
-    ours = getattr(pz, kernel)(co, counts, n_vals, th, tw, 128)
+    ref = jfn(jnp.asarray(_np(co)), jnp.asarray(_np(counts)), n_vals, th, tw,
+              chunk)
+    ours = getattr(pz, kernel)(co, counts, n_vals, th, tw, chunk)
     for what, o, r in zip(("z", "id", "vals"), ours, ref):
         np.testing.assert_array_equal(_np(o), _np(r), err_msg=what)
     assert np.isfinite(_np(ref[0])).sum() > 1000
     if name == "synthetic":
         winner = {"zattr_tiles": 9, "zattr_tiles_vpu": 130}[kernel]
         assert (_np(ours[1])[2] == float(ids[2, winner])).all()
+    elif winners is not None:
+        idg = _np(co).reshape(4, 3, 5 + n_vals, -1)[:, 2, 4]
+        for t, e in enumerate(winners[kernel]):
+            assert (_np(ours[1])[t] == idg[t, e]).all(), t
+    if name == "zero_signs" and kernel == "zattr_tiles_vpu":
+        neg = np.signbit(_np(ref[0])).reshape(4, -1)
+        assert [bool(n.all()) for n in neg] == signs
+        assert [bool(n.any()) for n in neg] == signs
 
 
 def test_resolves_match_jax():

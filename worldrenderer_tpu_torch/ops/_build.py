@@ -91,3 +91,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _loaded[name] = lib
     return lib
+
+
+def occupancy(name: str, symbol: str, c: int, tile_w: int) -> Dict[str, int]:
+    """A kernel's resources at chunk size ``c`` and tile width ``tile_w``,
+    from the occupancy query ``symbol`` that library ``name`` exports:
+    registers per thread, shared memory per block (bytes) and resident
+    blocks per SM."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    regs, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = fn(c, tile_w, ctypes.byref(regs), ctypes.byref(smem),
+             ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: CUDA error {err}")
+    return {"registers": regs.value, "shared_bytes": smem.value,
+            "blocks_per_sm": blocks.value}

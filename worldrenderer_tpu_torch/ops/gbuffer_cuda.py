@@ -9,8 +9,11 @@ on ties, i.e. lowest triangle id); then it evaluates that entry's z and
 value planes. It is bound by fp32 arithmetic — four plane evaluations and
 six compares per (entry, pixel) pair, against 48 bytes of geometry per
 entry shared by every pixel of the tile — so the kernel stages each chunk's
-geometry in shared memory once, keeps per-pixel state in registers and
-reads the winner's value planes only at the end (see the source's note).
+geometry in shared memory (cp.async, two slots), keeps per-pixel state in
+registers and reads the winner's value planes only at the end. A tile of n
+chunks runs as up to n blocks over slices of its pixels, so a launch lasts
+as long as its total work, not its heaviest tile (see the source's note).
+One wrapper call launches one CUDA kernel and never waits on the card.
 
 Inputs (built by ``ops/gbuffer.py``):
   recs (B, 12 + 3*n_vals, L) f32 — per entry [e0|e1|e2|z|values] (a, b, g)
@@ -195,3 +198,11 @@ def gbuffer_tiles(
         raise RuntimeError(f"gbuffer_tiles launch failed: CUDA error {err}")
     launch_count += 1
     return z, idm, vals
+
+
+def occupancy(c: int, tile_w: int) -> dict:
+    """K1's registers per thread, shared memory per block (bytes) and
+    resident blocks per SM at chunk size ``c`` and tile width ``tile_w``,
+    on the current card."""
+    return _build.occupancy("gbuffer_tiles", "gbuffer_tiles_occupancy", c,
+                            tile_w)

@@ -6,12 +6,14 @@ K2 (``zattr_tiles``) replaces the TPU kernel
 (``zattr_tiles_vpu``) replaces ``:209 zattr_tiles_vpu``; both live in
 ``csrc/zattr_tiles.cu``. They share one contract: per tile and pixel centre,
 the covered entry of least z (the first chunk that reaches it, the least id
-within that chunk), its id and its value planes. They differ in formulation
-and in rounding, as the TPU kernels do: K2 is a sequential scan per pixel
-whose planes round as the reference's fp32 plane dot; K3 keeps running
-buffers per lane slot, reduces across slots at the end, and rounds as XLA
-contracts K3's elementwise form. Both are bound by fp32 arithmetic (see the
-source's note).
+within that chunk), its id and its value planes. They differ in tie rule
+and in rounding, as the TPU kernels do: K2's planes round as the
+reference's fp32 plane dot; K3's TPU kernel keeps running buffers per lane
+slot and reduces across slots at the end, and rounds as XLA contracts its
+elementwise form. Both CUDA kernels are one sequential scan per pixel; K3's
+keeps the slot rule exactly with a guard on exact z ties (see the source's
+note), and splits a tile's pixels over blocks as K1 does. Both are bound by
+fp32 arithmetic. The plain versions follow the TPU kernels' formulations.
 
 Inputs (built by ``ops/gbuffer.py _zattr_inputs``):
   coeffs (n_tiles, 3, R*K) f32 — coef-major blocks of K entries, R = 5 +
@@ -217,3 +219,11 @@ def zattr_tiles_vpu(coeffs, counts, n_vals, tile_h, tile_w, chunk):
     version for CPU tensors. Returns (z, id, vals) as documented above."""
     return _route("zattr_tiles_vpu", zattr_tiles_vpu_plain, coeffs, counts,
                   n_vals, tile_h, tile_w, chunk)
+
+
+def vpu_occupancy(chunk: int, tile_w: int) -> dict:
+    """K3's registers per thread, shared memory per block (bytes) and
+    resident blocks per SM at this chunk and tile width, on the current
+    card."""
+    return _build.occupancy("zattr_tiles", "zattr_tiles_vpu_occupancy",
+                            chunk_size(chunk), tile_w)

@@ -8,17 +8,20 @@ Phases, one line each; any failure exits nonzero before the last line:
   3. every kernel against its plain PyTorch version on the card, bit for
      bit, at the shapes the main path gives it and on edge-case inputs (the
      probes P1-P3 at their own shapes, P1 also on the headline's chunk
-     runs; K1 on exact +0 / -0 ties across a 10-chunk tile; K2 and K3 on
-     exact ties within one lane slot across chunks, at c = 128 and 256; K3
-     on -0 / +0 ties across lane slots, its z's sign held to the TPU
-     kernel's rule; K1, K2 and K3 at a tile width of 96, no power of two;
-     K3 on 64x128 tiles),
+     runs; K1 on exact +0 / -0 ties across a 10-chunk tile; K2, K3 and
+     K4 on exact ties within one lane slot across chunks, K2 and K3 at
+     c = 128 and 256; K3 on -0 / +0 ties across lane slots, its z's sign
+     held to the TPU kernel's rule; K2 and K4 on the same planes, every
+     covered z +0; K1, K2 and K3 at a tile width of 96, no power of two;
+     K2, K3 and K4 on 64x128 tiles),
      with times, bounds and library calls; for K1 and K3, the readings
      that test what bounds them ([k1] balance: the inputs as laid against
      the same chunks re-laid evenly over the tiles; [k3] reduction: the
-     counts as given against all 0), a run of each wrapper with every
-     device-to-host sync an error ([sync]), and each kernel's registers,
-     shared memory and resident blocks per SM;
+     counts as given against all 0); K2 and K4 with every count 0 (what
+     the grid's blocks that exit at once cost); a run of each tile
+     kernel's wrapper with every device-to-host sync an error ([sync]),
+     and each tile kernel's registers, shared memory and resident blocks
+     per SM;
   4. the main path — the headline G-buffer render of bench.py:434 (6 views
      at 512², positions + normals, a 10,082-triangle heightfield,
      auto_fast_config budgets) through ``render()`` — with every kernel's
@@ -44,10 +47,11 @@ The second-to-last line is a JSON record of every kernel (launches on the
 main paths, error against the plain version, times, bound); the last line
 is the device summary, printed only when every phase passed.
 
-    python3 chip_smoke.py --k1-k3 ROOT
+    python3 chip_smoke.py --k1-k4 ROOT
 
-times only K1 and K3 (``[k1] balance``, ``[k3] reduction``) with the port
-imported from ROOT, to compare two versions on one card (k1_k3_readings).
+times only the tile kernels K1-K4 (``[k1] balance``, ``[k3] reduction``,
+K2 and K4 as given and with every count 0) with the port imported from
+ROOT, to compare two versions on one card (k1_k4_readings).
 """
 
 from __future__ import annotations
@@ -81,19 +85,20 @@ K1_OPS_PER_PAIR = 17
 # fp32 instructions per (entry, row of a tile's pixels) in K1's and K3's
 # scans: the four b-terms.
 OPS_PER_ENTRY_ROW = 4
+# fp32 instructions per (entry, column of a tile's pixels) in K2's and K4's
+# scans: the four a-terms a * lx.
+OPS_PER_ENTRY_COL = 4
 # Shared memory serves 32 banks of 4 bytes per clock on each of the 132
 # SMs; the clock is the card's maximum SM clock (nvidia-smi clocks.max.sm).
 SMEM_BYTES_PER_CLOCK_SM = 128
 N_SMS = 132
-# fp32 instructions per (entry, pixel) pair in K2's and K4's scans: four
-# planes of (a multiply, an FMA and an add; they are built with -fmad=false
-# too, but spell the FMA out; fma(b, ly, a*lx) leaves no b-term to share)
-# and six compares (e0, e1, e2 >= 0, -1 <= z <= 1, z < zbest).
-TILE_OPS_PER_PAIR = 18
-# K3's: its planes are fma(lx, a, ly*b) + g with ly * b shared along a row
-# as in K1, so four planes of (an FMA and an add), and five compares (its
-# best z starts at 1, so z <= zbest also tests z <= 1).
-K3_OPS_PER_PAIR = 13
+# fp32 instructions per (entry, pixel) pair in K2's, K3's and K4's scans:
+# four planes of (an FMA and an add) and five compares (e0, e1, e2 >= 0,
+# z >= -1, z against the best z, which starts at or just above 1, so that
+# compare also tests z <= 1). K2's and K4's planes are fma(b, ly, a*lx) + g
+# with a * lx shared along a column (OPS_PER_ENTRY_COL); K3's are
+# fma(lx, a, ly*b) + g with ly * b shared along a row (OPS_PER_ENTRY_ROW).
+TILE_OPS_PER_PAIR = 13
 
 
 def log(phase: str, msg: str) -> None:
@@ -302,6 +307,8 @@ def slot_tie_tile_inputs(device, c=128, n_vals=2):
         keeps (0, 5), which wins for both;
       tile 3: count 2c + 1, z -0.99 at (0, 40) id 300 and (1, 40) id 200;
         K3 keeps (0, 40); K2 too.
+    K4 (on the geometry blocks, ``zid_tile_inputs``) takes the first entry
+    in list order at the least z: K2's entries here.
     Returns ``(coeffs, counts)`` on ``device`` and the winning entries
     ``{kernel: [entry per tile]}``."""
     ties = {0: [(0, 10, -0.99, 600), (1, 10, -0.99, 500), (1, 20, -0.99, 550)],
@@ -311,7 +318,8 @@ def slot_tie_tile_inputs(device, c=128, n_vals=2):
     k = 3 * c + 44
     out = tie_tile_blocks(13, c, n_vals, -0.7, 1.5, ties, [k, k, k, 2 * c + 1])
     winners = {"zattr_tiles_vpu": [c + 20, 2 * c + 3, 5, 40],
-               "zattr_tiles": [10, c + 7, 5, 40]}
+               "zattr_tiles": [10, c + 7, 5, 40],
+               "raster_zid_tiles": [10, c + 7, 5, 40]}
     return tuple(t.to(device) for t in out), winners
 
 
@@ -325,16 +333,29 @@ def zero_sign_tile_inputs(device, c=128, n_vals=2):
       tile 3: tile 2's planes and -0 at (1, 30) id 800.
     The TPU kernel's cross-slot jnp.min orders -0 below +0, so its z is -0
     where some slot's running z is -0 (tiles 0, 1 and 3) and +0 in tile 2.
-    Returns ``(coeffs, counts)`` on ``device``, the winning entries
-    ``{kernel: [entry per tile]}`` and the sign bit of z per tile."""
+    K2 and K4 (on the geometry blocks) take entry 10 in every tile, and
+    their z is +0 everywhere: their TPU kernels' plane dot accumulates from
+    +0. Returns ``(coeffs, counts)`` on ``device``, the winning entries
+    ``{kernel: [entry per tile]}`` and the sign bit of K3's z per tile."""
     ties = {0: [(0, 10, 0.0, 600), (0, 20, -0.0, 700)],
             1: [(0, 10, -0.0, 600), (1, 20, 0.0, 500)],
             2: [(0, 10, 0.0, 600), (1, 10, -0.0, 500)],
             3: [(0, 10, 0.0, 600), (1, 10, -0.0, 500), (1, 30, -0.0, 800)]}
     out = tie_tile_blocks(17, c, n_vals, 0.1, 0.8, ties, [3 * c + 44] * 4)
     winners = {"zattr_tiles_vpu": [10, c + 20, 10, 10],
-               "zattr_tiles": [10, 10, 10, 10]}
+               "zattr_tiles": [10, 10, 10, 10],
+               "raster_zid_tiles": [10, 10, 10, 10]}
     return tuple(t.to(device) for t in out), winners, [True, True, False, True]
+
+
+def zid_tile_inputs(coeffs, counts, n_vals):
+    """K4's inputs from K2's and K3's blocks (n_tiles, 3, (5 + n_vals) * K):
+    the four geometry blocks (n_tiles, 3, 4K), the constant id plane as
+    the slots' triangle ids (n_tiles, K) i32, and the counts."""
+    n_tiles = coeffs.shape[0]
+    co = coeffs.reshape(n_tiles, 3, 5 + n_vals, -1)
+    return (co[:, :, :4].reshape(n_tiles, 3, -1).contiguous(),
+            co[:, 2, 4].to(torch.int32).contiguous(), counts)
 
 
 def synthetic_tile_inputs(device, n_vals=2):
@@ -507,20 +528,21 @@ def atlas_clip(mesh):
 
 
 def tile_bound_ms(counts, tile_h, tile_w, chunk, scan_words, out_words,
-                  ops_per_pair=TILE_OPS_PER_PAIR, ops_per_row=0):
+                  ops_per_row=0, ops_per_col=0):
     """Least time the card could take for a K2, K3 or K4 launch on these
     inputs: the larger of the scanned (entry, pixel) pairs' fp32
-    instructions (``ops_per_pair``, plus ``ops_per_row`` per entry and tile
-    row) over the card's fp32 instruction rate and the bytes it must move
-    (each scanned entry's scan words read once, the counts read, each
-    output written once) over the memory rate. Each tile scans
-    ceil(count / c) chunks of c entries."""
+    instructions (``TILE_OPS_PER_PAIR``, plus ``ops_per_row`` per entry and
+    tile row and ``ops_per_col`` per entry and tile column) over the card's
+    fp32 instruction rate and the bytes it must move (each scanned entry's
+    scan words read once, the counts read, each output written once) over
+    the memory rate. Each tile scans ceil(count / c) chunks of c entries."""
     from worldrenderer_tpu_torch.ops.tensor import chunk_size
 
     c = chunk_size(chunk)
     live = int(((counts.long().clamp(min=0) + (c - 1)) // c).sum())
     p = tile_h * tile_w
-    ops = live * c * (p * ops_per_pair + tile_h * ops_per_row)
+    ops = live * c * (p * TILE_OPS_PER_PAIR + tile_h * ops_per_row
+                      + tile_w * ops_per_col)
     ops_ms = ops / PEAK_FP32_INSTR * 1e3
     n_tiles = counts.numel()
     nbytes = live * c * scan_words * 4 + n_tiles * 4 + n_tiles * p * out_words * 4
@@ -589,13 +611,73 @@ def read_counts(gc, zc, rk) -> dict:
             "raster_zid_tiles": rk.launch_count, **zc.launch_counts}
 
 
+def tile_winners_check(what, got_ids, inputs, n_vals, winners, plus_one) -> None:
+    """Raises unless each tile's ids are those of its winning entry
+    (``winners``, one per tile, spanning the whole tile): the constant id
+    plane's value, or for K4 the slot's triangle id + 1."""
+    co = inputs[0]
+    dev = co.device
+    if plus_one:  # K4: (coeffs4, ids, counts)
+        tid = inputs[1].to(torch.float32) + 1
+    else:
+        k = co.shape[2] // (5 + n_vals)
+        tid = co.reshape(co.shape[0], 3, 5 + n_vals, k)[:, 2, 4]
+    rows = torch.arange(tid.shape[0], device=dev)
+    want = tid[rows, torch.tensor(winners, device=dev)]
+    if not torch.equal(got_ids.to(torch.float32),
+                       want[:, None, None].expand_as(got_ids)):
+        raise AssertionError(f"{what}: wrong tie winners")
+
+
+def plus_zero_check(tag, name, got) -> None:
+    """K2 or K4 on ``zero_sign_tile_inputs``, whose every pixel is covered
+    at z = 0: every z must be +0, as the TPU kernels' plane dot gives it."""
+    z = got[0]
+    if not ((z == 0).all() and not torch.signbit(z).any()):
+        raise AssertionError(f"{name} zero_signs: a covered z is not +0")
+    log(tag, "zero_signs: every covered z is +0 (the planes at zero are +0 "
+        "and -0; the TPU kernel's plane dot accumulates from +0)")
+
+
+def k2_k4_times(zc, rk, zin, zdims, kin, atlas, kdims, card) -> dict:
+    """K2 on workload 1's blocks and K4 on workload 1's and the atlas's,
+    through their wrappers, as given and with every count 0: then no tile
+    scans a chunk, the grid's blocks that a tile does not need exit at once
+    and the rest write the background, so the second time is what the grid
+    costs without the scan. Each wrapper launches one CUDA kernel (an
+    older K4 wrapper also mapped the kernel's slots to ids in PyTorch, so
+    a parent's K4 reads with that gather). Returns the times."""
+    def zero(counts):
+        return torch.zeros_like(counts)
+
+    def k4(inputs, counts):
+        return lambda: rk.raster_zid_tiles(inputs[0], inputs[1], counts, *kdims)
+
+    t = {"k2": cuda_ms(lambda: zc.zattr_tiles(*zin, *zdims), 20),
+         "k2_empty": cuda_ms(
+             lambda: zc.zattr_tiles(zin[0], zero(zin[1]), *zdims), 20),
+         "k4": cuda_ms(k4(kin, kin[2]), 20),
+         "k4_empty": cuda_ms(k4(kin, zero(kin[2])), 20),
+         "k4_atlas": cuda_ms(k4(atlas, atlas[2]), 20),
+         "k4_atlas_empty": cuda_ms(k4(atlas, zero(atlas[2])), 20)}
+    log("k2", f"every count 0 (workload 1, {card}): {t['k2_empty']:.4f} ms "
+        f"against {t['k2']:.4f} ms as given")
+    log("k4", f"every count 0 ({card}): workload 1 {t['k4_empty']:.4f} ms "
+        f"against {t['k4']:.4f} ms as given; atlas {t['k4_atlas_empty']:.4f} "
+        f"ms against {t['k4_atlas']:.4f} ms")
+    return t
+
+
 def tile_kernel_checks(pt, gb, pr, zc, rk, dev, card) -> dict:
     """Phase 3 for K2, K3 and K4: each kernel against its plain version on
     the card, bit for bit, at the slice's shapes (workload 1's per-tile
     blocks; for K4 also workload 2's 2048² atlas) and on the synthetic edge
     cases; then each kernel's time, its plain version's and its bound at
-    workload 1's shapes. Returns the kernels' JSON entries (launches still
-    0)."""
+    workload 1's shapes, every count 0, a run with device-to-host syncs an
+    error, and its registers and blocks per SM. Returns the kernels' JSON
+    entries (launches still 0)."""
+    from worldrenderer_tpu_torch.ops.tensor import chunk_size
+
     mesh, cam = sphere_scene(pt, dev)
     pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
     cfg = pt.DEFAULT_CONFIG
@@ -607,6 +689,8 @@ def tile_kernel_checks(pt, gb, pr, zc, rk, dev, card) -> dict:
     sdims = (2, 16, 128, 128)
     ties, winners = slot_tie_tile_inputs(dev)
     ties256, winners256 = slot_tie_tile_inputs(dev, c=256)
+    zeros, zwinners, _ = zero_sign_tile_inputs(dev)
+    times = k2_k4_times(zc, rk, zin, zdims, kin, atlas, kdims, card)
     entries = {}
     for name, tag, src, replaces in (
         ("zattr_tiles", "k2", "zattr_tiles.cu", "gbuffer_pallas.py:290"),
@@ -620,37 +704,40 @@ def tile_kernel_checks(pt, gb, pr, zc, rk, dev, card) -> dict:
                  ("synthetic_w96", (co, counts), (2, 16, 96, 128), None),
                  ("synthetic_c256", (co, counts), sdims[:3] + (256,), None),
                  ("slot_ties", ties, sdims, winners[name]),
-                 ("slot_ties_c256", ties256, sdims[:3] + (256,), winners256[name])]
-        if name == "zattr_tiles_vpu":  # K3 takes tiles of any size, K2 4,096 pixels
-            cases.append(("synthetic_64x128", (co, counts), (2, 64, 128, 128), None))
+                 ("slot_ties_c256", ties256, sdims[:3] + (256,), winners256[name]),
+                 ("synthetic_64x128", (co, counts), (2, 64, 128, 128), None)]
+        if name == "zattr_tiles":  # K3's zero signs follow its slot rule
+            cases.append(("zero_signs", zeros, sdims, zwinners[name]))
         for case, inputs, dims, win in cases:
             got = kernel(*inputs, *dims)
             e = bitwise_against_plain(name, got, plain(*inputs, *dims))
             err = max(err, e)
-            if win is not None:  # each tile's winner spans the whole tile
-                k = inputs[0].shape[2] // (5 + dims[0])
-                tid = inputs[0].reshape(4, 3, 5 + dims[0], k)[:, 2, 4]
-                want = tid[torch.arange(4, device=dev), torch.tensor(win, device=dev)]
-                if not torch.equal(got[1], want[:, None, None].expand_as(got[1])):
-                    raise AssertionError(f"{name} {case}: wrong tie winners")
+            if win is not None:
+                tile_winners_check(f"{name} {case}", got[1], inputs, dims[0],
+                                   win, False)
             log(tag, f"{case}: {int(inputs[0].shape[0])} tiles, bitwise equal "
                 f"to the plain version (max abs err {e})")
+            if case == "zero_signs":
+                plus_zero_check(tag, name, got)
         if name == "zattr_tiles_vpu":
             zero_sign_check(kernel, plain, dev)
-        ms = cuda_ms(lambda: kernel(*zin, *zdims), 20)
+            ms = cuda_ms(lambda: kernel(*zin, *zdims), 20)
+            ops = {"ops_per_row": OPS_PER_ENTRY_ROW}
+        else:
+            ms = times["k2"]
+            ops = {"ops_per_col": OPS_PER_ENTRY_COL}
         plain_ms = cuda_ms(lambda: plain(*zin, *zdims), 2)
-        ops = ((K3_OPS_PER_PAIR, OPS_PER_ENTRY_ROW) if name == "zattr_tiles_vpu"
-               else (TILE_OPS_PER_PAIR, 0))
         bound, by, live = tile_bound_ms(zin[1], zdims[1], zdims[2], zdims[3],
-                                        13, 2 + zdims[0], *ops)
+                                        13, 2 + zdims[0], **ops)
         log(tag, f"workload 1 ({card}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound:.5f} ms by {by} ({live} live chunks)")
         if name == "zattr_tiles_vpu":
             k3_reduction(zc, zin, zdims, card)
-            without_sync(lambda: kernel(*zin, *zdims))
-            log("sync", "K3's wrapper ran under set_sync_debug_mode('error'): "
-                "no device-to-host sync")
-            log_occupancy("k3", zc.vpu_occupancy(zdims[3], zdims[2]), zdims[3])
+        without_sync(lambda: kernel(*zin, *zdims))
+        log("sync", f"{tag.upper()}'s wrapper ran under "
+            "set_sync_debug_mode('error'): no device-to-host sync")
+        occ = zc.vpu_occupancy if name == "zattr_tiles_vpu" else zc.occupancy
+        log_occupancy(tag, occ(zdims[3], zdims[2]), zdims[3])
         entries[name] = dict(
             name=name, route="cuda", source=f"worldrenderer_tpu_torch/csrc/{src}",
             replaces=f"worldrenderer_tpu/ops/{replaces}", launches=0,
@@ -658,32 +745,47 @@ def tile_kernel_checks(pt, gb, pr, zc, rk, dev, card) -> dict:
             bound_by=by, library_ms=None)
 
     err = 0.0
-    for case, inputs, dims in (("sphere_512", kin, kdims),
-                               ("atlas_2048", atlas, kdims),
-                               ("synthetic", (co4, ids, counts), (16, 128, 128))):
+    c4dims = (16, 128, 128)
+    for case, inputs, dims, win in (
+            ("sphere_512", kin, kdims, None),
+            ("atlas_2048", atlas, kdims, None),
+            ("synthetic", (co4, ids, counts), c4dims, None),
+            ("synthetic_64x128", (co4, ids, counts), (64, 128, 128), None),
+            ("slot_ties", zid_tile_inputs(*ties, 2), c4dims,
+             winners["raster_zid_tiles"]),
+            ("zero_signs", zid_tile_inputs(*zeros, 2), c4dims,
+             zwinners["raster_zid_tiles"])):
         coeffs, kids, cnt = inputs
         z, slot = rk.raster_zid_tiles_plain(coeffs, cnt, *dims)
-        e = bitwise_against_plain("raster_zid_tiles",
-                                  rk.raster_zid_tiles(*inputs, *dims),
+        got = rk.raster_zid_tiles(*inputs, *dims)
+        e = bitwise_against_plain("raster_zid_tiles", got,
                                   (z, rk.ids_from_slots(slot, kids)))
         err = max(err, e)
+        if win is not None:
+            tile_winners_check(f"raster_zid_tiles {case}", got[1], inputs, 0,
+                               win, True)
         log("k4", f"{case}: {int(coeffs.shape[0])} tiles, bitwise equal to the "
             f"plain version (max abs err {e})")
-    ms = cuda_ms(lambda: rk.raster_zid_tiles(*kin, *kdims), 20)
+        if case == "zero_signs":
+            plus_zero_check("k4", "raster_zid_tiles", got)
     plain_ms = cuda_ms(lambda: rk.raster_zid_tiles_plain(kin[0], kin[2], *kdims), 2)
-    bound, by, live = tile_bound_ms(kin[2], *kdims, 12, 2)
-    atlas_ms = cuda_ms(lambda: rk.raster_zid_tiles(*atlas, *kdims), 20)
-    a_bound, a_by, a_live = tile_bound_ms(atlas[2], *kdims, 12, 2)
-    log("k4", f"workload 1 ({card}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound:.5f} ms by {by} ({live} live chunks); workload 2 atlas "
-        f"{atlas_ms:.4f} ms, bound {a_bound:.5f} ms by {a_by} ({a_live} live "
-        f"chunks)")
+    col = {"ops_per_col": OPS_PER_ENTRY_COL}
+    bound, by, live = tile_bound_ms(kin[2], *kdims, 12, 2, **col)
+    a_bound, a_by, a_live = tile_bound_ms(atlas[2], *kdims, 12, 2, **col)
+    log("k4", f"workload 1 ({card}): {times['k4']:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.5f} ms by {by} ({live} live "
+        f"chunks); workload 2 atlas {times['k4_atlas']:.4f} ms, bound "
+        f"{a_bound:.5f} ms by {a_by} ({a_live} live chunks)")
+    without_sync(lambda: rk.raster_zid_tiles(*kin, *kdims))
+    log("sync", "K4's wrapper ran under set_sync_debug_mode('error'): no "
+        "device-to-host sync")
+    log_occupancy("k4", rk.occupancy(kdims[2], kdims[1]), chunk_size(kdims[2]))
     entries["raster_zid_tiles"] = dict(
         name="raster_zid_tiles", route="cuda",
         source="worldrenderer_tpu_torch/csrc/raster_zid_tiles.cu",
         replaces="worldrenderer_tpu/ops/rasterize_pallas.py:97", launches=0,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-        library_ms=None)
+        max_abs_err=err, ms=times["k4"], plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None)
     return entries
 
 
@@ -1286,20 +1388,23 @@ def ssaa_phase(pt, gc, zc, rk, dev, card) -> int:
     return k1
 
 
-def k1_k3_readings(port_root: Path) -> int:
-    """``python3 chip_smoke.py --k1-k3 ROOT``: only K1's ``[k1] balance``
-    (headline and config4) and K3's ``[k3] reduction``, with the port
-    imported from ROOT, a directory that holds a ``worldrenderer_tpu_torch``
-    package (such as a parent commit unpacked by ``git archive`` into a
-    git-ignored directory). Two versions are compared in turns on one card:
-    ``for d in _parent . . _parent; do python3 chip_smoke.py --k1-k3 $d;
-    done``; their ``[k1k3] digest`` lines, of the kernels' output bits, must
-    agree."""
+def k1_k4_readings(port_root: Path) -> int:
+    """``python3 chip_smoke.py --k1-k4 ROOT``: only the tile kernels' times
+    (K1's ``[k1] balance`` on the headline and config4, K3's ``[k3]
+    reduction``, K2 on workload 1 and K4 on workload 1 and the atlas, each
+    as given and with every count 0), with the port imported from ROOT, a
+    directory that holds a ``worldrenderer_tpu_torch`` package (such as a
+    parent commit unpacked by ``git archive`` into a git-ignored
+    directory). Two versions are compared in turns on one card: ``for d in
+    _parent . . _parent; do python3 chip_smoke.py --k1-k4 $d; done``; their
+    ``[k1k4] digest`` lines, of the kernels' output bits, must agree."""
     global cuda_ms
     sys.path.insert(0, str(port_root.resolve()))
     import worldrenderer_tpu_torch as pt
     from worldrenderer_tpu_torch.ops import gbuffer as gb
     from worldrenderer_tpu_torch.ops import gbuffer_cuda as gc
+    from worldrenderer_tpu_torch.ops import raster_zid_cuda as rk
+    from worldrenderer_tpu_torch.ops import rasterize as pr
     from worldrenderer_tpu_torch.ops import zattr_cuda as zc
     from worldrenderer_tpu_torch.probes import cuda_ms
 
@@ -1318,22 +1423,29 @@ def k1_k3_readings(port_root: Path) -> int:
     (c4, c4dims), _ = textured_kernel_inputs(pt, gb, dev)
     sph, scam = sphere_scene(pt, dev)
     spos = pt.get_clip_space_position(sph.v_pos, scam.mvp_mtx)
-    zin, zdims = gb._zattr_inputs(spos, sph.t_pos_idx, sph.v_nrm, 512, 512,
-                                  pt.DEFAULT_CONFIG)
+    cfg = pt.DEFAULT_CONFIG
+    zin, zdims = gb._zattr_inputs(spos, sph.t_pos_idx, sph.v_nrm, 512, 512, cfg)
+    kin = pr._zid_inputs(spos, sph.t_pos_idx, 512, 512, cfg)[1]
+    atlas = pr._zid_inputs(atlas_clip(sph), sph.t_tex_idx, 2048, 2048, cfg)[1]
+    kdims = (cfg.tile_h, cfg.tile_w, cfg.chunk)
     k1_balance(gc, head, hdims, card, "headline")
     k1_balance(gc, c4, c4dims, card, "config4")
     k3_reduction(zc, zin, zdims, card)
+    k2_k4_times(zc, rk, zin, zdims, kin, atlas, kdims, card)
     h = hashlib.sha256()
     for t in (*gc.gbuffer_tiles(*head, *hdims), *gc.gbuffer_tiles(*c4, *c4dims),
-              *zc.zattr_tiles_vpu(*zin, *zdims)):
+              *zc.zattr_tiles_vpu(*zin, *zdims), *zc.zattr_tiles(*zin, *zdims),
+              *rk.raster_zid_tiles(*kin, *kdims),
+              *rk.raster_zid_tiles(*atlas, *kdims)):
         h.update(t.contiguous().cpu().numpy().tobytes())
-    log("k1k3", f"digest of K1's and K3's outputs {h.hexdigest()[:16]}")
+    log("k1k4", f"digest of K1's, K2's, K3's and K4's outputs "
+        f"{h.hexdigest()[:16]}")
     return 0
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--k1-k3":
-        return k1_k3_readings(Path(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--k1-k4":
+        return k1_k4_readings(Path(sys.argv[2]))
     # The port must come from the checkout this script sits in (first on
     # sys.path), never from an installed copy: alone in a directory, the
     # script fails.

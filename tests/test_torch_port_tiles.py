@@ -73,6 +73,7 @@ from chip_smoke import (
     slot_tie_tile_inputs,
     synthetic_tile_inputs,
     zero_sign_tile_inputs,
+    zid_tile_inputs,
 )
 
 # `worldrenderer_tpu.ops` re-exports functions named like the modules.
@@ -248,13 +249,29 @@ def _synthetic():
     return co, co4, ids, counts, (16, 128)
 
 
-@pytest.mark.parametrize("name", ["icosphere", "grid45", "synthetic"])
+def _same_bits(ours, ref, what):
+    """Values equal and z's sign too (``assert_array_equal`` counts -0
+    equal to +0)."""
+    np.testing.assert_array_equal(_np(ours), _np(ref), err_msg=what)
+    np.testing.assert_array_equal(np.signbit(_np(ours)), np.signbit(_np(ref)),
+                                  err_msg=f"{what}: sign bits")
+
+
+@pytest.mark.parametrize("name", ["icosphere", "grid45", "synthetic",
+                                  "zero_signs"])
 def test_raster_zid_plain_matches_jax_kernel(name):
     """K4's plain version against ``raster_zid_tiles_pallas`` (interpret
-    mode) on the same blocks: z and ``id + 1`` bit for bit; the synthetic
-    case's ties resolve to the least slot."""
+    mode) on the same blocks: z (its sign included) and ``id + 1`` bit for
+    bit; the synthetic case's ties resolve to the least slot. In the
+    zero-sign case (``zero_sign_tile_inputs``' four geometry blocks) every
+    pixel's z is a tie at zero, some planes -0: the TPU kernel's plane dot
+    accumulates from +0, so its z is +0 everywhere."""
     if name == "synthetic":
         _, co4, ids, counts, (th, tw) = _synthetic()
+    elif name == "zero_signs":
+        (co, counts), _, _ = zero_sign_tile_inputs("cpu")
+        co4, ids, counts = zid_tile_inputs(co, counts, 2)
+        th, tw = 16, 128
     else:
         (co4, _, ids, counts), _, (th, tw) = _tile_blocks(name, 1)
         co4, ids, counts = (torch.from_numpy(np.ascontiguousarray(x))
@@ -262,12 +279,14 @@ def test_raster_zid_plain_matches_jax_kernel(name):
     jz, jid = j_zid(jnp.asarray(_np(co4)), jnp.asarray(_np(ids)),
                     jnp.asarray(_np(counts)), th, tw, 128)
     z, idm = pk.raster_zid_tiles(co4, ids, counts, th, tw, 128)
-    np.testing.assert_array_equal(_np(z), _np(jz))
+    _same_bits(z, jz, "z")
     np.testing.assert_array_equal(_np(idm), _np(jid))
     assert np.isfinite(_np(jz)).sum() > 1000
     if name == "synthetic":
         assert (_np(idm)[2] == int(ids[2, 5]) + 1).all()
         assert np.isinf(_np(z)[1]).all()
+    elif name == "zero_signs":
+        assert (_np(z) == 0).all() and not np.signbit(_np(z)).any()
 
 
 @pytest.mark.parametrize("name", ["icosphere", "grid45", "synthetic",
@@ -282,7 +301,9 @@ def test_zattr_plain_matches_jax_kernel(kernel, name):
     slot that reached the least z keeps that entry against a later one of
     smaller id in the same slot. At -0 / +0 ties across slots (zero_signs)
     z agrees in value, and K3's TPU kernel gives -0 wherever a slot holds
-    -0 (jnp.min orders -0 first), the rule the CUDA kernel keeps."""
+    -0 (jnp.min orders -0 first), the rule the CUDA kernel keeps. K2's z is
+    held with its sign on every case: its TPU kernel's plane dot
+    accumulates from +0, so a covered z is never -0."""
     n_vals = 2
     chunk = 128
     winners = None
@@ -305,6 +326,8 @@ def test_zattr_plain_matches_jax_kernel(kernel, name):
     ours = getattr(pz, kernel)(co, counts, n_vals, th, tw, chunk)
     for what, o, r in zip(("z", "id", "vals"), ours, ref):
         np.testing.assert_array_equal(_np(o), _np(r), err_msg=what)
+    if kernel == "zattr_tiles":
+        _same_bits(ours[0], ref[0], "z")
     assert np.isfinite(_np(ref[0])).sum() > 1000
     if name == "synthetic":
         winner = {"zattr_tiles": 9, "zattr_tiles_vpu": 130}[kernel]

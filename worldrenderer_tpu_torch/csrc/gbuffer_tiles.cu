@@ -58,9 +58,6 @@ using namespace tile_scan;
 
 constexpr int kGeoRows = 12;
 constexpr int kBackgroundId = 1 << 30;
-// The least float above 1: a covered z (at most 1) is below it, so a scan
-// that starts its best z here needs no separate z <= 1 test.
-constexpr float kZCap = 1.0f + 0x1p-23f;
 
 // cp.async of one 4-byte word from device to shared memory, in the group
 // that the next cp_async_commit() closes.

@@ -25,11 +25,13 @@
 // sum is +0, which the kernels reproduce by adding +0.
 //
 // What bounds them: fp32 arithmetic. Every (entry, pixel) pair costs four
-// plane evaluations and five or six compares: in K2 a multiply, an FMA and
-// an add each; in K3, whose ly*b is shared along a row, an FMA and an add.
-// An entry's 13 geometry and id words serve every pixel of the tile. Both
-// keep the pair loop free of device-memory traffic: a chunk's scan words in
-// shared memory, per-pixel state in registers.
+// plane evaluations of an FMA and an add, and five compares: K2's a*lx is
+// shared along a column, K3's ly*b along a row. An entry's 13 geometry and
+// id words serve every pixel of the tile. Both keep the pair loop free of
+// device-memory traffic: a chunk's scan words in shared memory, per-pixel
+// state in registers. Both split a tile's pixels over blocks
+// (tile_scan::run_part), so a tile of any size runs, and the 4,096-pixel
+// tiles of workload 1 run as two or more blocks each.
 //
 // Bits: K2 evaluates planes as tile_scan::plane_dot, fma(b, ly, a*lx) + g,
 // the order in which the reference's fp32 plane dot (Precision.HIGHEST, XLA
@@ -44,6 +46,7 @@ namespace {
 using namespace tile_scan;
 
 constexpr int kScanRows = 13;  // e0, e1, e2, z (a, b, g each) and the id g
+constexpr int kStride = 16;    // words per staged entry: 13 used
 constexpr float kBackgroundId = 1073741824.f;  // 2^30
 
 // Coefficient `coef` of block `blk` of entry e; the padding past k is the
@@ -54,88 +57,139 @@ __device__ __forceinline__ float coef_at(const float* co, int r, int k,
   return co[(static_cast<size_t>(coef) * r + blk) * k + e];
 }
 
-// ---- K2: one thread block per tile, a sequential scan per pixel. --------
+// Stage the chunk of entries e_base .. e_base + c - 1 entry-major:
+// geo[j * 16 + row], row = block * 3 + coef for the four geometry blocks,
+// row 12 the id block's g (block 4, coef 2). An entry reads as
+// [e0a e0b e0g e1a] [e1b e1g e2a e2b] [e2g za zb zg] [id - - -].
+__device__ __forceinline__ void stage_scan_words(float* geo, const float* co,
+                                                 int r, int k, int c,
+                                                 int e_base) {
+  stage_entries<kStride>(geo, kScanRows, c, [&](int row, int j) {
+    const int blk = row < 12 ? row / 3 : 4;
+    const int coef = row < 12 ? row - blk * 3 : 2;
+    return coef_at(co, r, k, coef, blk, e_base + j);
+  });
+}
+
+struct ZattrArgs {
+  const float* coeffs;
+  const int* counts;
+  float* z_out;
+  float* id_out;
+  float* v_out;
+  int n_vals;
+  TileDims d;
+};
+
+// ---- K2: one scan per pixel in list order, exact ties once per chunk. ----
 //
-// Each chunk's 13 scan words per entry are staged in shared memory once and
-// read as broadcasts; each thread keeps its PPT pixels' best z, id, chunk
-// and entry in registers, and evaluates only the winner's value planes at
-// the end. The sequential scan keeps K2's rule: an entry replaces the best
-// when its z is smaller, or equal with a smaller id within the same chunk.
-template <int PPT>
-__global__ void __launch_bounds__(kThreads)
-    zattr_kernel(const float* __restrict__ coeffs,
-                 const int* __restrict__ counts, float* __restrict__ z_out,
-                 float* __restrict__ id_out, float* __restrict__ v_out, int k,
-                 int n_vals, int tile_h, int tile_w, int c) {
-  extern __shared__ float geo[];  // [kScanRows][c], row = block * 3 + coef
-  const int tile = blockIdx.x;
-  const int p_tile = tile_h * tile_w;
-  const int r = 5 + n_vals;
-  const float* co = coeffs + static_cast<size_t>(tile) * 3 * r * k;
-  const int count = min(max(counts[tile], 0), k);
-  const int nch = (count + c - 1) / c;
+// K2's contract (the TPU kernel's per-chunk least z and least id among its
+// ties, then a strict merge across chunks): the winner is the entry of
+// least id among the covered entries at the pixel's least z of the first
+// chunk that reaches that z (the first in list order among equal ids). That
+// is one scan per pixel in list order with one state (zbest, win): the hot
+// loop makes only the strict improvements z < zbest, so win is the first
+// entry of the chunk that lowered zbest to its final value, and an equal z
+// only raises the thread's tie flag. The ties are settled at the end of the
+// chunk, while it is still staged (dot_tie_pass): at each pixel whose best
+// was set in this chunk (win >= e_base), a later covered entry of the chunk
+// at zbest replaces win when its id is smaller. A best set in an earlier
+// chunk stays: the merge is strict. Exact ties are rare on real inputs, and
+// keeping them out of the entry loop keeps that loop's state to zbest and
+// win; the id is read from the winner at the end. zbest starts at kZCap, so
+// the strict z < zbest also tests z <= 1; a z of kZCap itself only raises
+// the flag, and the tie pass skips a pixel that has no winner.
+//
+// z of a covered pixel is never -0 in K2 (nor in K4): the TPU kernel's
+// plane dot accumulates from +0, where fma(b, ly, a*lx) + g gives -0 for a
+// plane whose a, b and g are all -0. The store adds +0, as the plain version
+// does; the scan's compares do not see the sign.
+//
+// The structure is K3's: chunks staged entry-major (stage_scan_words), a
+// tile's pixels split over blocks. The scan is tile_scan::dot_scan, which
+// K4 runs too: a thread's pixels share a column when the tile width
+// divides kThreads, so each plane's a*lx is one multiply per entry and a
+// pair costs an FMA and an add per plane. The winner's value planes are
+// evaluated once at the end (plus +0).
 
-  float lx[PPT], ly[PPT], zbest[PPT], idbest[PPT];
-  int cbest[PPT], win[PPT];
+// At each of a thread's pixels whose best was set in the staged chunk
+// (entries e_base ..), a later covered entry of the chunk at zbest takes
+// the winner's place when its id is smaller, so the least id wins.
+template <int NG, bool kCol>
+__device__ __forceinline__ void dot_tie_pass(const float* geo, int c,
+                                             int e_base, const float* lx,
+                                             const float* ly,
+                                             const float* zbest, int* win) {
+  const float4* g4 = reinterpret_cast<const float4*>(geo);
 #pragma unroll
-  for (int q = 0; q < PPT; ++q) {
-    pixel_centre(threadIdx.x + q * kThreads, tile_w, lx[q], ly[q]);
-    zbest[q] = inf_f();
-    idbest[q] = kBackgroundId;
-    cbest[q] = -1;
-    win[q] = -1;
-  }
-
-  for (int ci = 0; ci < nch; ++ci) {
-    const int e_base = ci * c;
-    stage_chunk(geo, kScanRows, c, [&](int row, int j) {
-      const int blk = row / 3, coef = row - blk * 3;
-      // row 12 is the id block's g (block 4, coef 2)
-      return row < 12 ? coef_at(co, r, k, coef, blk, e_base + j)
-                      : coef_at(co, r, k, 2, 4, e_base + j);
-    });
-    for (int j = 0; j < c; ++j) {
-      const float e0a = geo[0 * c + j], e0b = geo[1 * c + j], e0g = geo[2 * c + j];
-      const float e1a = geo[3 * c + j], e1b = geo[4 * c + j], e1g = geo[5 * c + j];
-      const float e2a = geo[6 * c + j], e2b = geo[7 * c + j], e2g = geo[8 * c + j];
-      const float za = geo[9 * c + j], zb = geo[10 * c + j], zg = geo[11 * c + j];
-      const float id = geo[12 * c + j];
-#pragma unroll
-      for (int q = 0; q < PPT; ++q) {
-        const float z = plane_dot(za, zb, zg, lx[q], ly[q]);
-        const bool cov = covers(plane_dot(e0a, e0b, e0g, lx[q], ly[q]),
-                                plane_dot(e1a, e1b, e1g, lx[q], ly[q]),
-                                plane_dot(e2a, e2b, e2g, lx[q], ly[q]), z);
-        if (cov && (z < zbest[q] ||
-                    (z == zbest[q] && cbest[q] == ci && id < idbest[q]))) {
-          zbest[q] = z;
-          idbest[q] = id;
-          cbest[q] = ci;
-          win[q] = e_base + j;
-        }
+  for (int q = 0; q < NG; ++q) {
+    if (win[q] < e_base) continue;  // set in an earlier chunk, or none
+    const float lxq = kCol ? lx[0] : lx[q];
+    float idw = geo[(win[q] - e_base) * kStride + 12];
+    for (int j = win[q] - e_base + 1; j < c; ++j) {
+      const float id = geo[j * kStride + 12];
+      if (!(id < idw)) continue;
+      const float4 r0 = g4[4 * j], r1 = g4[4 * j + 1], r2 = g4[4 * j + 2];
+      const float z = plane_dot(r2.y, r2.z, r2.w, lxq, ly[q]);
+      if (z == zbest[q] &&
+          covers(plane_dot(r0.x, r0.y, r0.z, lxq, ly[q]),
+                 plane_dot(r0.w, r1.x, r1.y, lxq, ly[q]),
+                 plane_dot(r1.z, r1.w, r2.x, lxq, ly[q]), z)) {
+        idw = id;
+        win[q] = e_base + j;
       }
     }
   }
+}
+
+// One part of a tile: NG groups of pixels from p0 (tile_scan::part_pixel_col)
+// over the tile's nch chunks.
+template <int NG, bool kCol>
+__device__ __forceinline__ void dot_part(const ZattrArgs& a, float* geo,
+                                         int tile, int nch, int p0) {
+  const int c = a.d.c, k = a.d.k;
+  const int r = 5 + a.n_vals;
+  const int p_tile = a.d.tile_h * a.d.tile_w;
+  const float* co = a.coeffs + static_cast<size_t>(tile) * 3 * r * k;
+
+  float lx[NG], ly[NG], zbest[NG];
+  int win[NG];
+  dot_scan<NG, kCol, kStride, true>(
+      geo, c, nch, p0, a.d.tile_w, lx, ly, zbest, win,
+      [&](int e_base) { stage_scan_words(geo, co, r, k, c, e_base); },
+      [&](int e_base) {
+        dot_tie_pass<NG, kCol>(geo, c, e_base, lx, ly, zbest, win);
+      });
 
 #pragma unroll
-  for (int q = 0; q < PPT; ++q) {
-    const int p = threadIdx.x + q * kThreads;
+  for (int q = 0; q < NG; ++q) {
+    const int p = part_pixel_col(p0, q);
     if (p >= p_tile) continue;
     const size_t o = static_cast<size_t>(tile) * p_tile + p;
     const int w = win[q];
-    z_out[o] = zbest[q];
-    id_out[o] = idbest[q];
-    for (int v = 0; v < n_vals; ++v) {
+    const float lxq = kCol ? lx[0] : lx[q];
+    a.z_out[o] = w >= 0 ? __fadd_rn(zbest[q], 0.f) : inf_f();
+    a.id_out[o] = w >= 0 ? coef_at(co, r, k, 2, 4, w) : kBackgroundId;
+    for (int v = 0; v < a.n_vals; ++v) {
       float val = 0.f;
       if (w >= 0) {
         val = __fadd_rn(plane_dot(coef_at(co, r, k, 0, 5 + v, w),
                                   coef_at(co, r, k, 1, 5 + v, w),
-                                  coef_at(co, r, k, 2, 5 + v, w), lx[q], ly[q]),
+                                  coef_at(co, r, k, 2, 5 + v, w), lxq, ly[q]),
                         0.f);
       }
-      v_out[(static_cast<size_t>(tile) * n_vals + v) * p_tile + p] = val;
+      a.v_out[(static_cast<size_t>(tile) * a.n_vals + v) * p_tile + p] = val;
     }
   }
+}
+
+// Grid (max_parts * n_tiles), as tile_scan::run_part lays it out.
+template <bool kCol>
+__global__ void __launch_bounds__(kThreads) zattr_kernel(ZattrArgs a) {
+  extern __shared__ __align__(16) float geo[];  // [c][16]
+  run_part(a.counts, a.d, [&](auto ng_c, int tile, int nch, int p0) {
+    dot_part<decltype(ng_c)::value, kCol>(a, geo, tile, nch, p0);
+  });
 }
 
 // ---- K3: one sequential scan per pixel that keeps K3's slot rule. --------
@@ -170,7 +224,7 @@ __global__ void __launch_bounds__(kThreads)
 // slot's first at zero makes the best z -0, whoever wins. (The plain
 // version's torch.amin leaves that sign to its reduction order.)
 //
-// The structure is K2's and K1's: each chunk's 13 scan words are staged in
+// The structure is K1's: each chunk's 13 scan words are staged in
 // shared memory once per block, entry-major and padded to 16 words so a
 // thread reads an entry's geometry as three float4 broadcasts; per-pixel
 // state lives in registers; the winner's value planes are evaluated once at
@@ -179,7 +233,6 @@ __global__ void __launch_bounds__(kThreads)
 // 4,096-pixel tiles of workload 1 run as two or more blocks; a thread's
 // pixels share a row (tile_scan::part_pixel), so each plane's ly*b is
 // computed once per entry and a pixel costs an FMA and an add per plane.
-constexpr int kVpuStride = 16;  // words per staged entry: 13 used
 
 // Whether slot s reached z at this pixel in a chunk before ci: one of its
 // earlier entries covers it with z equal (-0 == +0, as the slot's strict <
@@ -248,7 +301,7 @@ __device__ __forceinline__ void tie_pass(const float* co, const float* geo,
                  plane_vpu(r0.w, r1.x, r1.y, lx[q], lyq),
                  plane_vpu(r1.z, r1.w, r2.x, lx[q], lyq), z)) {
         const TieTake t = tie_take(co, r, k, c, e_base + j,
-                                   geo[j * kVpuStride + 12], win[q], lx[q],
+                                   geo[j * kStride + 12], win[q], lx[q],
                                    lyq, z, zbest[q]);
         if (t.replaces) win[q] = e_base + j;
         // The reduction's least z is -0 if any slot at zero holds -0.
@@ -258,23 +311,14 @@ __device__ __forceinline__ void tie_pass(const float* co, const float* geo,
   }
 }
 
-struct K3Args {
-  const float* coeffs;
-  const int* counts;
-  float* z_out;
-  float* id_out;
-  float* v_out;
-  int n_tiles, k, n_vals, tile_h, tile_w, c, groups, max_parts;
-};
-
 // One part of a tile: NG groups of pixels from p0 (tile_scan::part_pixel)
 // over the tile's nch chunks.
 template <int NG, bool kRow>
-__device__ __forceinline__ void vpu_part(const K3Args& a, float* geo,
+__device__ __forceinline__ void vpu_part(const ZattrArgs& a, float* geo,
                                          int tile, int nch, int p0) {
-  const int c = a.c, k = a.k;
+  const int c = a.d.c, k = a.d.k;
   const int r = 5 + a.n_vals;
-  const int p_tile = a.tile_h * a.tile_w;
+  const int p_tile = a.d.tile_h * a.d.tile_w;
   const float* co = a.coeffs + static_cast<size_t>(tile) * 3 * r * k;
 
   // zbest starts at 1 with no winner, so "z <= zbest" also tests z <= 1; a
@@ -283,23 +327,15 @@ __device__ __forceinline__ void vpu_part(const K3Args& a, float* geo,
   int win[NG];
 #pragma unroll
   for (int q = 0; q < NG; ++q) {
-    pixel_centre(part_pixel<NG, kRow>(p0, q, a.tile_w), a.tile_w, lx[q], ly[q]);
+    pixel_centre(part_pixel<NG, kRow>(p0, q, a.d.tile_w), a.d.tile_w, lx[q],
+                 ly[q]);
     zbest[q] = 1.f;
     win[q] = -1;
   }
 
   for (int ci = 0; ci < nch; ++ci) {
     const int e_base = ci * c;
-    // geo[j * 16 + row], row = block * 3 + coef for the four geometry
-    // blocks, row 12 the id block's g (block 4, coef 2).
-    __syncthreads();  // no thread still reads the previous chunk
-    for (int i = threadIdx.x; i < kScanRows * c; i += kThreads) {
-      const int row = i / c, j = i - row * c;
-      const int blk = row < 12 ? row / 3 : 4;
-      const int coef = row < 12 ? row - blk * 3 : 2;
-      geo[j * kVpuStride + row] = coef_at(co, r, k, coef, blk, e_base + j);
-    }
-    __syncthreads();
+    stage_scan_words(geo, co, r, k, c, e_base);
     const float4* g4 = reinterpret_cast<const float4*>(geo);
     bool tie = false;
     for (int j = 0; j < c; ++j) {
@@ -333,7 +369,7 @@ __device__ __forceinline__ void vpu_part(const K3Args& a, float* geo,
 
 #pragma unroll
   for (int q = 0; q < NG; ++q) {
-    const int p = part_pixel<NG, kRow>(p0, q, a.tile_w);
+    const int p = part_pixel<NG, kRow>(p0, q, a.d.tile_w);
     if (p >= p_tile) continue;
     const size_t o = static_cast<size_t>(tile) * p_tile + p;
     const int w = win[q];
@@ -353,104 +389,88 @@ __device__ __forceinline__ void vpu_part(const K3Args& a, float* geo,
   }
 }
 
-// Grid (max_parts * n_tiles): block x = (max_parts - 1 - part) * n_tiles +
-// tile, the highest parts first as in K1. max_parts is the split of a full
-// list of k entries, which no tile exceeds.
+// Grid (max_parts * n_tiles), as tile_scan::run_part lays it out.
 template <bool kRow>
-__global__ void __launch_bounds__(kThreads) zattr_vpu_kernel(K3Args a) {
+__global__ void __launch_bounds__(kThreads) zattr_vpu_kernel(ZattrArgs a) {
   extern __shared__ __align__(16) float geo[];  // [c][16]
-  const int tile = blockIdx.x % a.n_tiles;
-  const int part = a.max_parts - 1 - static_cast<int>(blockIdx.x) / a.n_tiles;
-  const int count = min(max(a.counts[tile], 0), a.k);
-  const int nch = (count + a.c - 1) / a.c;
-  const TileSplit split = split_tile(a.groups, nch);
-  if (part >= split.parts) return;  // the tile needs fewer blocks
-  const int p0 = part * split.ng * kThreads;
-  dispatch_groups(split.ng, [&](auto ng_c) {
+  run_part(a.counts, a.d, [&](auto ng_c, int tile, int nch, int p0) {
     vpu_part<decltype(ng_c)::value, kRow>(a, geo, tile, nch, p0);
   });
 }
 
-using VpuKernelFn = void (*)(K3Args);
-VpuKernelFn vpu_kernel_for(int tile_w) {
+using KernelFn = void (*)(ZattrArgs);
+
+// K2's instance for a tile width: a thread's pixels in one column when it
+// allows.
+KernelFn dot_kernel_for(int tile_w) {
+  return column_mapping(tile_w) ? zattr_kernel<true> : zattr_kernel<false>;
+}
+
+// K3's: a thread's pixels in one row when it allows.
+KernelFn vpu_kernel_for(int tile_w) {
   return row_mapping(tile_w) ? zattr_vpu_kernel<true> : zattr_vpu_kernel<false>;
 }
 
-size_t vpu_smem_bytes(int c) {
-  return static_cast<size_t>(kVpuStride) * c * sizeof(float);
+size_t smem_bytes(int c) {
+  return static_cast<size_t>(kStride) * c * sizeof(float);
 }
 
-int check_shapes(int n_tiles, int k, int n_vals, int tile_h, int tile_w,
-                 int c) {
-  return n_tiles > 0 && k > 0 && n_vals > 0 && tile_h > 0 && tile_w > 0 &&
-         c > 0;
+// Launch `kernel` over max_parts * n_tiles blocks on `stream`
+// (tile_scan::launch_parts); 0 on success or a CUDA error,
+// cudaErrorInvalidValue for shapes the kernels do not take (an empty grid,
+// a chunk whose staged words exceed 48 KB of shared memory).
+int launch(KernelFn kernel, const void* coeffs, const void* counts,
+           void* z_out, void* id_out, void* v_out, int n_tiles, int k,
+           int n_vals, int tile_h, int tile_w, int c, void* stream) {
+  if (n_tiles <= 0 || k <= 0 || n_vals <= 0 || tile_h <= 0 || tile_w <= 0 ||
+      c <= 0 || smem_bytes(c) > 48 * 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ZattrArgs a{static_cast<const float*>(coeffs), static_cast<const int*>(counts),
+              static_cast<float*>(z_out), static_cast<float*>(id_out),
+              static_cast<float*>(v_out), n_vals,
+              {n_tiles, k, tile_h, tile_w, c}};
+  return launch_parts(kernel, a, smem_bytes(c), stream);
 }
 
 }  // namespace
 
-// Launch K2 on `stream` (outputs as documented above). Returns
-// cudaGetLastError() after the launch (0 on success); cudaErrorInvalidValue
-// for shapes it does not take (a tile of more than 16 * 256 pixels, a chunk
-// whose scan words exceed 48 KB of shared memory, an empty grid).
+// Launch K2 on `stream` (outputs as documented above); a tile of any size
+// splits into groups of kThreads pixels. Returns 0 on success or a CUDA
+// error; cudaErrorInvalidValue for shapes it does not take.
 extern "C" int zattr_tiles_launch(const void* coeffs, const void* counts,
                                   void* z_out, void* id_out, void* v_out,
                                   int n_tiles, int k, int n_vals, int tile_h,
                                   int tile_w, int c, void* stream) {
-  const size_t smem = static_cast<size_t>(kScanRows) * c * sizeof(float);
-  if (!check_shapes(n_tiles, k, n_vals, tile_h, tile_w, c) ||
-      smem > 48 * 1024 || pixels_per_thread(tile_h * tile_w) == 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* co = static_cast<const float*>(coeffs);
-  auto* cn = static_cast<const int*>(counts);
-  auto* zo = static_cast<float*>(z_out);
-  auto* io = static_cast<float*>(id_out);
-  auto* vo = static_cast<float*>(v_out);
-  return static_cast<int>(
-      dispatch_ppt(pixels_per_thread(tile_h * tile_w), [&](auto ppt_c) {
-        constexpr int kPpt = decltype(ppt_c)::value;
-        zattr_kernel<kPpt><<<n_tiles, kThreads, smem, s>>>(
-            co, cn, zo, io, vo, k, n_vals, tile_h, tile_w, c);
-        return cudaGetLastError();
-      }));
+  return launch(dot_kernel_for(tile_w), coeffs, counts, z_out, id_out, v_out,
+                n_tiles, k, n_vals, tile_h, tile_w, c, stream);
 }
 
 // Launch K3 on `stream` (outputs as documented above). c must be 128 or 256
 // (the slot of an entry is its index mod c); a tile of any size splits into
-// groups of kThreads pixels. Returns cudaGetLastError() after the launch (0
-// on success); cudaErrorInvalidValue for shapes it does not take.
+// groups of kThreads pixels. Returns 0 on success or a CUDA error;
+// cudaErrorInvalidValue for shapes it does not take.
 extern "C" int zattr_tiles_vpu_launch(const void* coeffs, const void* counts,
                                       void* z_out, void* id_out, void* v_out,
                                       int n_tiles, int k, int n_vals,
                                       int tile_h, int tile_w, int c,
                                       void* stream) {
-  if (!check_shapes(n_tiles, k, n_vals, tile_h, tile_w, c) ||
-      (c != 128 && c != 256)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int groups = (tile_h * tile_w + kThreads - 1) / kThreads;
-  const int max_parts = split_tile(groups, (k + c - 1) / c).parts;
-  K3Args a{static_cast<const float*>(coeffs), static_cast<const int*>(counts),
-           static_cast<float*>(z_out), static_cast<float*>(id_out),
-           static_cast<float*>(v_out), n_tiles, k, n_vals, tile_h, tile_w, c,
-           groups, max_parts};
-  vpu_kernel_for(tile_w)<<<max_parts * n_tiles, kThreads, vpu_smem_bytes(c),
-                           static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (c != 128 && c != 256) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(vpu_kernel_for(tile_w), coeffs, counts, z_out, id_out, v_out,
+                n_tiles, k, n_vals, tile_h, tile_w, c, stream);
 }
 
-// K3's resources at chunk size c and tile width tile_w: registers per
-// thread, shared memory per block (bytes, static + dynamic) and resident
-// blocks per SM. Returns 0 or a CUDA error.
+// K2's and K3's resources at chunk size c and tile width tile_w: registers
+// per thread, shared memory per block (bytes, static + dynamic) and resident
+// blocks per SM. Return 0 or a CUDA error.
+extern "C" int zattr_tiles_occupancy(int c, int tile_w, int* regs, int* smem,
+                                     int* blocks_per_sm) {
+  return kernel_occupancy(dot_kernel_for(tile_w), smem_bytes(c), regs, smem,
+                          blocks_per_sm);
+}
+
 extern "C" int zattr_tiles_vpu_occupancy(int c, int tile_w, int* regs,
                                          int* smem, int* blocks_per_sm) {
-  const VpuKernelFn kernel = vpu_kernel_for(tile_w);
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *regs = attr.numRegs;
-  *smem = static_cast<int>(attr.sharedSizeBytes + vpu_smem_bytes(c));
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel, kThreads, vpu_smem_bytes(c)));
+  return kernel_occupancy(vpu_kernel_for(tile_w), smem_bytes(c), regs, smem,
+                          blocks_per_sm);
 }

@@ -4,12 +4,16 @@ its plain PyTorch version.
 K4 (``csrc/raster_zid_tiles.cu``) replaces the TPU kernel
 ``worldrenderer_tpu/ops/rasterize_pallas.py:97 raster_zid_tiles_pallas``.
 Per tile it scans the binned list in chunks of c entries and keeps, per
-pixel centre, the covered entry of least z, the least slot on ties; the
-wrapper maps the slot to ``triangle id + 1``, as the TPU kernel's wrapper
-does. It is bound by fp32 arithmetic (four plane evaluations and six
+pixel centre, the covered entry of least z, the least slot on ties, and
+writes that slot's ``triangle id + 1``, the map the TPU kernel's wrapper
+makes from its slots (the plain version returns the slots, and
+``ids_from_slots`` maps them). It is bound by fp32 arithmetic (four plane evaluations and five
 compares per (entry, pixel) pair), so the kernel stages each chunk's
-coefficients in shared memory once and keeps per-pixel state in registers
-(see the source's note).
+coefficients in shared memory once per block, splits a tile's pixels over
+blocks (so it takes tiles of any size) and keeps per-pixel state in
+registers (see the source's note). z of a covered pixel is never -0: the
+TPU kernel's plane dot accumulates from +0, so the kernel and the plain
+version add +0 to the winner's z.
 
 Inputs (built by ``ops/rasterize.py _gather_tile_coeffs``):
   coeffs (n_tiles, 3, 4K) f32 — coef-major [e0|e1|e2|z] blocks of K,
@@ -72,7 +76,8 @@ def raster_zid_tiles_plain(
     K is padded to a multiple of c with never-covering slots, as the TPU
     wrapper pads. Step r takes the r-th chunk of every tile that scans one:
     each pixel's chunk-local least z and least slot among its ties, merged
-    into the tile's buffer with a strict ``<``."""
+    into the tile's buffer with a strict ``<``; z is written plus +0, so a
+    covered z is never -0."""
     n_tiles, dev = coeffs.shape[0], coeffs.device
     co, nch, c = pad_tile_blocks(coeffs, 4, counts, chunk)
     lx, ly = pixel_centres(tile_h, tile_w, dev)
@@ -102,30 +107,33 @@ def raster_zid_tiles_plain(
             zbest[part] = torch.where(upd, zmin, zbest[part])
             slot[part] = torch.where(upd, (r * c + first).to(torch.int32),
                                      slot[part])
+    # + 0: the TPU kernel's plane dot accumulates from +0, so a covered z
+    # is never -0 (a plane whose a, b and g are all -0 gives -0 here).
+    zbest = zbest + 0.0
     return zbest.reshape(n_tiles, tile_h, tile_w), slot.reshape(n_tiles, tile_h, tile_w)
 
 
-def _launch(coeffs, counts, tile_h, tile_w, chunk):
+def _launch(coeffs, ids, counts, tile_h, tile_w, chunk):
     global launch_count
     n_tiles, _, four_k = coeffs.shape
     dev = coeffs.device
     z = torch.empty((n_tiles, tile_h, tile_w), dtype=torch.float32, device=dev)
-    slot = torch.empty((n_tiles, tile_h, tile_w), dtype=torch.int32, device=dev)
+    idmap = torch.empty((n_tiles, tile_h, tile_w), dtype=torch.int32, device=dev)
     if n_tiles == 0:
-        return z, slot
+        return z, idmap
     fn = _build.load("raster_zid_tiles").raster_zid_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         err = fn(
-            coeffs.data_ptr(), counts.data_ptr(), z.data_ptr(), slot.data_ptr(),
-            n_tiles, four_k // 4, tile_h, tile_w, chunk_size(chunk),
-            torch.cuda.current_stream(dev).cuda_stream,
+            coeffs.data_ptr(), ids.data_ptr(), counts.data_ptr(), z.data_ptr(),
+            idmap.data_ptr(), n_tiles, four_k // 4, tile_h, tile_w,
+            chunk_size(chunk), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"raster_zid_tiles launch failed: CUDA error {err}")
     launch_count += 1
-    return z, slot
+    return z, idmap
 
 
 def raster_zid_tiles(
@@ -141,16 +149,28 @@ def raster_zid_tiles(
     background; idmap (n_tiles, th, tw) i32, ``triangle id + 1``, 0 on
     background)."""
     _check(coeffs, ids, counts)
-    args = (coeffs, counts, tile_h, tile_w, chunk)
-    z, slot = route("raster_zid_tiles", coeffs.device,
-                    lambda: raster_zid_tiles_plain(*args), lambda: _launch(*args))
-    return z, ids_from_slots(slot, ids)
+
+    def plain():
+        z, slot = raster_zid_tiles_plain(coeffs, counts, tile_h, tile_w, chunk)
+        return z, ids_from_slots(slot, ids)
+
+    return route("raster_zid_tiles", coeffs.device, plain,
+                 lambda: _launch(coeffs, ids, counts, tile_h, tile_w, chunk))
 
 
 def ids_from_slots(slot: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """The TPU wrapper's last step: slot (n_tiles, th, tw) of each pixel's
-    winner -> ``triangle id + 1`` from ids (n_tiles, K), 0 on background."""
+    """The TPU wrapper's last step, which the CUDA kernel makes itself: slot
+    (n_tiles, th, tw) of each pixel's winner -> ``triangle id + 1`` from
+    ids (n_tiles, K), 0 on background."""
     covered = slot < BACKGROUND_SLOT
     safe = torch.where(covered, slot, 0).reshape(slot.shape[0], -1).long()
     gid = torch.gather(ids, 1, safe).reshape(slot.shape)
     return torch.where(covered, gid + 1, 0)
+
+
+def occupancy(chunk: int, tile_w: int) -> dict:
+    """K4's registers per thread, shared memory per block (bytes) and
+    resident blocks per SM at this chunk and tile width, on the current
+    card."""
+    return _build.occupancy("raster_zid_tiles", "raster_zid_tiles_occupancy",
+                            chunk_size(chunk), tile_w)

@@ -10,10 +10,16 @@ within that chunk), its id and its value planes. They differ in tie rule
 and in rounding, as the TPU kernels do: K2's planes round as the
 reference's fp32 plane dot; K3's TPU kernel keeps running buffers per lane
 slot and reduces across slots at the end, and rounds as XLA contracts its
-elementwise form. Both CUDA kernels are one sequential scan per pixel; K3's
-keeps the slot rule exactly with a guard on exact z ties (see the source's
-note), and splits a tile's pixels over blocks as K1 does. Both are bound by
-fp32 arithmetic. The plain versions follow the TPU kernels' formulations.
+elementwise form. Both CUDA kernels are one sequential scan per pixel that
+makes only strict improvements, with each chunk's exact z ties settled at
+the chunk's end: K2's by least id within the chunk, K3's by the slot rule
+with a guard (see the source's notes). Both split a tile's pixels over
+blocks, so they take tiles of any size, and both are bound by fp32
+arithmetic. The plain versions follow the TPU kernels' formulations.
+
+z of a covered pixel is never -0 in K2: its TPU kernel's plane dot
+accumulates from +0, so K2 and its plain version add +0 to the winner's
+z. K3 keeps its TPU kernel's sign, -0 where a lane slot's least z is -0.
 
 Inputs (built by ``ops/gbuffer.py _zattr_inputs``):
   coeffs (n_tiles, 3, R*K) f32 — coef-major blocks of K entries, R = 5 +
@@ -91,7 +97,8 @@ def zattr_tiles_plain(coeffs, counts, n_vals, tile_h, tile_w, chunk):
     follows ``_zattr_tile_xla`` (``ops/gbuffer.py:759``). Step r takes the
     r-th chunk of every tile that scans one: each pixel's chunk-local least
     z, the least id among its ties, merged into the tile's buffer with a
-    strict ``<``. The winner's value planes are evaluated at the end."""
+    strict ``<``. The winner's value planes are evaluated at the end, and
+    z is written plus +0, so a covered z is never -0."""
     co, nch, c = pad_tile_blocks(coeffs, 5 + n_vals, counts, chunk)
     n_tiles, dev = co.shape[0], co.device
     lx, ly = pixel_centres(tile_h, tile_w, dev)
@@ -125,7 +132,9 @@ def zattr_tiles_plain(coeffs, counts, n_vals, tile_h, tile_w, chunk):
             idbest[part] = torch.where(upd, idmin, idbest[part])
             win[part] = torch.where(upd, r * c + first, win[part])
     vals = _winner_values(co, win, lx, ly, plane_dot)
-    return _tile_outputs(zbest, idbest, vals, tile_h, tile_w)
+    # + 0: the TPU kernel's plane dot accumulates from +0, so a covered z
+    # is never -0 (a plane whose a, b and g are all -0 gives -0 here).
+    return _tile_outputs(zbest + 0.0, idbest, vals, tile_h, tile_w)
 
 
 def zattr_tiles_vpu_plain(coeffs, counts, n_vals, tile_h, tile_w, chunk):
@@ -144,7 +153,8 @@ def zattr_tiles_vpu_plain(coeffs, counts, n_vals, tile_h, tile_w, chunk):
     win = torch.full((n_tiles, p), -1, dtype=torch.long, device=dev)
     lane = torch.arange(c, device=dev)
     active = torch.nonzero(nch > 0).squeeze(1)
-    for part in active.split(PLAIN_TILES_PER_STEP):
+    # (split of an empty index gives one empty part: no tile scans a chunk)
+    for part in active.split(PLAIN_TILES_PER_STEP) if active.numel() else ():
         n = part.shape[0]
         zrun = torch.full((n, p, c), inf, device=dev)
         idrun = torch.full((n, p, c), BACKGROUND_ID, device=dev)
@@ -219,6 +229,14 @@ def zattr_tiles_vpu(coeffs, counts, n_vals, tile_h, tile_w, chunk):
     version for CPU tensors. Returns (z, id, vals) as documented above."""
     return _route("zattr_tiles_vpu", zattr_tiles_vpu_plain, coeffs, counts,
                   n_vals, tile_h, tile_w, chunk)
+
+
+def occupancy(chunk: int, tile_w: int) -> dict:
+    """K2's registers per thread, shared memory per block (bytes) and
+    resident blocks per SM at this chunk and tile width, on the current
+    card."""
+    return _build.occupancy("zattr_tiles", "zattr_tiles_occupancy",
+                            chunk_size(chunk), tile_w)
 
 
 def vpu_occupancy(chunk: int, tile_w: int) -> dict:

@@ -4,11 +4,16 @@
 
 Phases, one line each; any failure exits nonzero before the last line:
   1. environment: the card's name and power limit (nvidia-smi), versions;
-  2. build of every kernel from the package's csrc/, timed;
+  2. build of every kernel from the package's csrc/, timed; [camera]:
+     ``get_camera`` on the card against ``get_camera`` on the CPU, bit for
+     bit (the headline's 6 views, config4's 4), beside the count of
+     elements the same matrices differ by when built on the card;
   3. every kernel against its plain PyTorch version on the card, bit for
      bit, at the shapes the main path gives it and on edge-case inputs (the
      probes P1-P3 at their own shapes, P1 also on the headline's chunk
-     runs; K1 on exact +0 / -0 ties across a 10-chunk tile; K2, K3 and
+     runs, with every count 0, on runs longer than its register group and
+     at c = 256 and 32, P3 also where its indices wrap, at R 300, 37 and
+     5; K1 on exact +0 / -0 ties across a 10-chunk tile; K2, K3 and
      K4 on exact ties within one lane slot across chunks, K2 and K3 at
      c = 128 and 256; K3 on -0 / +0 ties across lane slots, its z's sign
      held to the TPU kernel's rule; K2 and K4 on the same planes, every
@@ -21,7 +26,9 @@ Phases, one line each; any failure exits nonzero before the last line:
      the grid's blocks that exit at once cost); a run of each tile
      kernel's wrapper with every device-to-host sync an error ([sync]),
      and each tile kernel's registers, shared memory and resident blocks
-     per SM;
+     per SM; P1's and P3's kernels timed alone from a torch.profiler trace
+     beside their wrappers, an empty launch, P3's registers and blocks per
+     SM;
   4. the main path — the headline G-buffer render of bench.py:434 (6 views
      at 512², positions + normals, a 10,082-triangle heightfield,
      auto_fast_config budgets) through ``render()`` — with every kernel's
@@ -34,6 +41,10 @@ Phases, one line each; any failure exits nonzero before the last line:
      (K2), vpu_pallas (K3) and pallas (K4) backends; [atlas] workload 2,
      the bake's 2048² UV-atlas pass (K4); [classic] workload 3,
      ``rasterize`` and ``rasterize_db`` on the flat path (K1 in uv mode);
+     [flat] the headline through ``rasterize_gbuffer`` with ``vpu_pallas``
+     (K3) and ``fused_xla`` (K2) on flat-binned tile rows, as the JAX
+     package routes them at scale: each kernel bitwise against its plain
+     version on those rows, view 0 against the port's CPU run;
   6. slice 3's paths, each with its launch counts read around it:
      [texture] bench.py:731's config4 (4 views at 1024², textured colour,
      depth and normals) with texture_pack_mode none (against the port's
@@ -48,10 +59,12 @@ main paths, error against the plain version, times, bound); the last line
 is the device summary, printed only when every phase passed.
 
     python3 chip_smoke.py --k1-k4 ROOT
+    python3 chip_smoke.py --probes ROOT
 
-times only the tile kernels K1-K4 (``[k1] balance``, ``[k3] reduction``,
-K2 and K4 as given and with every count 0) with the port imported from
-ROOT, to compare two versions on one card (k1_k4_readings).
+time only the tile kernels K1-K4 (``[k1] balance``, ``[k3] reduction``,
+K2 and K4 as given and with every count 0), or only P1's and P3's wrappers
+and kernels, with the port imported from ROOT, to compare two versions on
+one card (k1_k4_readings, probe_readings).
 """
 
 from __future__ import annotations
@@ -136,6 +149,67 @@ def profile_ms(fn, reps: int = 3):
     top = [(e.key[:70], e.self_device_time_total / 1e3 / reps, e.count / reps)
            for e in rows[:6]]
     return wall, busy, launches, top
+
+
+def kernel_device_ms(fn, name: str, reps: int = 50):
+    """Mean device milliseconds per launch of the CUDA kernels whose name
+    holds ``name``, from one torch.profiler trace of ``reps`` calls of
+    ``fn`` after one warm-up call; None when the trace holds no such
+    kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in rows)
+    if not count:
+        return None
+    return sum(e.self_device_time_total for e in rows) / 1e3 / count
+
+
+def bits_differ(a, b) -> int:
+    """Elements of two float32 tensors whose bits differ (on the host)."""
+    return int((a.cpu().contiguous().view(torch.int32)
+                != b.cpu().contiguous().view(torch.int32)).sum())
+
+
+CAM_FIELDS = ("c2w", "w2c", "proj_mtx", "mvp_mtx", "cam_pos")
+
+
+def camera_phase(pt, dev) -> None:
+    """``get_camera(device="cuda")`` against ``get_camera(device="cpu")``,
+    every field bit for bit, for the headline's 6 views and config4's 4
+    views. Beside it, the elements in which the same matrices differ when
+    the camera helpers build them on the card (``get_c2w``,
+    ``get_projection_matrix``, ``affine_inverse`` and the product there):
+    how ``get_camera`` built them before it built them on the host."""
+    for name, views in (("headline", 6), ("config4", 4)):
+        kw = dict(elevation_deg=35.0, distance=3.0, fovy_deg=50.0,
+                  num_views=views, near=0.1, far=10.0)
+        card = pt.get_camera(device=dev, **kw)
+        host = pt.get_camera(device="cpu", **kw)
+        c2w = pt.get_c2w(35.0, 3.0, None, views, dev)
+        w2c = pt.affine_inverse(c2w)
+        proj = pt.get_projection_matrix(50.0, near=0.1, far=10.0,
+                                        device=dev).expand(views, 4, 4)
+        on_card = dict(c2w=c2w, w2c=w2c, proj_mtx=proj,
+                       mvp_mtx=torch.matmul(proj, w2c), cam_pos=c2w[:, :3, 3])
+        after = {f: bits_differ(getattr(card, f), getattr(host, f))
+                 for f in CAM_FIELDS}
+        before = {f: bits_differ(on_card[f], getattr(host, f))
+                  for f in CAM_FIELDS}
+        log("camera", f"{name} ({views} views): get_camera on the card vs on "
+            f"the CPU, differing elements {after}; built on the card by the "
+            f"helpers {before}")
+        if any(after.values()) or card.mvp_mtx.device.type != "cuda":
+            raise AssertionError(f"{name}: the card's camera differs from the "
+                                 "CPU's")
 
 
 def headline_scene(pt, device, n=72, views=6):
@@ -929,6 +1003,62 @@ def classic_phase(pt, gc, zc, rk, dev, card) -> int:
     return k1
 
 
+def flat_backends_phase(pt, gb, gc, zc, rk, dev, card, head_cfg) -> dict:
+    """The headline heightfield (6 views at 512², normals, the headline's
+    budgets) through ``rasterize_gbuffer`` with ``vpu_pallas`` and
+    ``fused_xla``: at 10,082 triangles the JAX package runs these on tile
+    rows cut from its flat binning, through its K3 and through
+    ``_zattr_tile_xla`` (K2's contract), and so does the port. Each run's
+    launch counts (K1 none), K3 / K2 on those rows bitwise against their
+    plain versions, the card against the port's CPU run of view 0 (mask and
+    tri_id within 1e-4 of the foreground, z 1e-5, attributes 5e-4) and
+    views/s. Returns the launches."""
+    mesh, cam = headline_scene(pt, dev)
+    mesh = pt.with_normals(mesh)
+    pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+    tri, nrm = mesh.t_pos_idx, mesh.v_nrm
+    launches = {}
+    for backend, kernel in (("vpu_pallas", "zattr_tiles_vpu"),
+                            ("fused_xla", "zattr_tiles")):
+        cfg = head_cfg._replace(backend=backend)
+
+        def run(cfg=cfg):
+            return pt.rasterize_gbuffer(pos, tri, nrm, (512, 512), cfg,
+                                        device=dev)
+
+        reset_counts(gc, zc, rk)
+        out = run()
+        counts = read_counts(gc, zc, rk)
+        if counts[kernel] < 1 or counts["gbuffer_tiles"]:
+            raise AssertionError(f"rasterize_gbuffer with {backend} did not "
+                                 f"run {kernel} alone: {counts}")
+        launches[kernel] = counts[kernel]
+        inputs, dims = gb._zattr_inputs(pos, tri, nrm, 512, 512, cfg)
+        err = bitwise_against_plain(
+            kernel, getattr(zc, kernel)(*inputs, *dims),
+            getattr(zc, f"{kernel}_plain")(*inputs, *dims))
+        ref = pt.rasterize_gbuffer(pos[:1].cpu(), tri.cpu(), nrm.cpu(),
+                                   (512, 512), cfg, device="cpu")
+        fg = int(ref.mask.sum())
+        both = out.mask[:1].cpu() & ref.mask
+        diffs = {"mask": int((out.mask[:1].cpu() != ref.mask).sum()),
+                 "tri_id": int((out.tri_id[:1].cpu() != ref.tri_id).sum())}
+        errs = {"z": float((out.z[:1].cpu() - ref.z)[both].abs().max()),
+                "attr": float((out.attr[:1].cpu() - ref.attr)[both].abs().max())}
+        ms = cuda_ms(run, 10)
+        log("flat", f"{backend}: launches {counts}; {kernel} on the flat rows "
+            f"({int(inputs[0].shape[0])} tiles, K {inputs[0].shape[2] // (5 + dims[0])}"
+            f", {int(inputs[1].sum())} entries) bitwise equal to the plain "
+            f"version (max abs err {err}); view 0 vs the port on the CPU: "
+            f"{diffs} of {fg} foreground, {errs}; {ms:.4f} ms = "
+            f"{len(cam) / (ms / 1e3):.2f} views/s ({card})")
+        if not (max(diffs.values()) <= 1e-4 * fg and errs["z"] < 1e-5
+                and errs["attr"] < 5e-4 and fg > 50_000):
+            raise AssertionError(f"the flat path with {backend}: the card "
+                                 "disagrees with the CPU")
+    return launches
+
+
 def spread_report(pt, mesh, cam, dev, kw, out, ref) -> None:
     """Where the card's render parts from the CPU's. Normals: the vertex
     normals (``index_add_``, atomic adds on the card) against the CPU's and
@@ -1047,12 +1177,44 @@ def textured_kernel_inputs(pt, gb, dev):
     return k1, k2
 
 
+def probe_times(p1, p3, head, dims, dev) -> dict:
+    """P1's and P3's times, each through its wrapper with CUDA events over
+    back-to-back calls and its kernel alone from a torch.profiler trace
+    (None where the trace holds no such kernel): P1 on ``head``'s chunk
+    runs, P3 on both axes at R 2048, T 400."""
+    def p1_call():
+        return p1.chunk_stream(*head, *dims)
+
+    t = {"p1": cuda_ms(p1_call, 50),
+         "p1_kernel": kernel_device_ms(p1_call, "chunk_stream_kernel")}
+    for axis in (1, 0):
+        xs, idx = p3.probe_inputs(axis, dev)
+
+        def call(xs=xs, idx=idx, axis=axis):
+            return p3.smem_gather(xs, idx, p3.T, axis)
+
+        t[f"p3_axis{axis}"] = cuda_ms(call, 10)
+        t[f"p3_axis{axis}_kernel"] = kernel_device_ms(
+            call, f"gather_axis{axis}_kernel", 10)
+        # T = 0: what a launch costs besides its loads (staging the window,
+        # the indices and outputs, axis 0's pairing).
+        t[f"p3_axis{axis}_t0_kernel"] = kernel_device_ms(
+            lambda: p3.smem_gather(xs, idx, 0, axis), f"gather_axis{axis}_kernel",
+            10)
+    return t
+
+
 def probe_checks(head_k1, head_dims, dev, card) -> dict:
     """Phase 3 for P1-P3: each probe kernel against its plain version on
-    the card (P1 at the TPU probe's case and at the headline's K1 chunk
-    runs over a (6, 8, L) array; P2 at V 6, R 24, N 999,699; P3 at R 2048,
-    T 400, both axes), bit for bit; times, bounds and library calls.
-    Returns the kernels' JSON entries (launches still 0)."""
+    the card, bit for bit: P1 at the TPU probe's case, at the headline's K1
+    chunk runs over a (6, 8, L) array, with every count 0, on runs longer
+    than its register group and at c = 256 and 32; P2 at V 6, R 24, N
+    999,699; P3 at R 2048, T 400, both axes, and where its indices wrap (R
+    300 from M - 1 and from 0, R 5 and 37). Then times, bounds and library
+    calls: P1's and P3's kernels alone from a torch.profiler trace beside
+    their wrappers' times with CUDA events, an empty launch's beside them,
+    and each P3 kernel's registers and blocks per SM. Returns the kernels'
+    JSON entries (launches still 0)."""
     from worldrenderer_tpu_torch.probes import chunk_stream as p1
     from worldrenderer_tpu_torch.probes import smem_gather as p3
     from worldrenderer_tpu_torch.probes import transpose as p2
@@ -1060,25 +1222,38 @@ def probe_checks(head_k1, head_dims, dev, card) -> dict:
     entries = {}
     g = torch.Generator(device=dev).manual_seed(11)
 
-    # P1: the probe's own case, then the headline's chunk runs.
+    # P1: the probe's own case, the headline's chunk runs, edge cases.
     own = (torch.arange(2 * 8 * 1024, dtype=torch.float32, device=dev)
            .reshape(2, 8, 1024) * 1e-4,
            torch.tensor([[0, 2, 4, 6], [1, 3, 5, 7]], dtype=torch.int32, device=dev),
            torch.tensor([[2, 2, 2, 0], [1, 1, 1, 1]], dtype=torch.int32, device=dev))
     _, _, start, nch = head_k1
     _, th, tw, n_ty, n_tx, c = head_dims
+    dims = (n_ty * n_tx, th, tw, c)
     x = torch.randn((start.shape[0], 8, head_k1[0].shape[2]), generator=g,
                     device=dev)
     head = (x, start, nch)
+    runs = torch.bincount(nch.flatten().long()).tolist()
+    log("probes", f"P1 headline run lengths (chunks: tiles): "
+        f"{ {n: k for n, k in enumerate(runs) if k} }")
+    long_x = torch.rand((2, 8, 40 * 256), generator=g, device=dev)
+    long_s = torch.randint(0, 20, (2, 5), generator=g, device=dev,
+                           dtype=torch.int32)
+    long_n = torch.randint(9, 15, (2, 5), generator=g, device=dev,
+                           dtype=torch.int32)
     err = 0.0
-    for case, (xx, ss, nn), dims in (("probe_own", own, (4, 16, 128, 128)),
-                                     ("headline_runs", head, (n_ty * n_tx, th, tw, c))):
-        e = bitwise_against_plain("chunk_stream", [p1.chunk_stream(xx, ss, nn, *dims)],
-                                  [p1.chunk_stream_plain(xx, ss, nn, *dims)])
+    for case, (xx, ss, nn), dd in (
+            ("probe_own", own, (4, 16, 128, 128)),
+            ("headline_runs", head, dims),
+            ("every_count_0", (x, start, torch.zeros_like(nch)), dims),
+            ("long_runs", (long_x, long_s, long_n), (5, 8, 64, 128)),
+            ("long_runs_c256", (long_x, long_s, long_n), (5, 8, 64, 256)),
+            ("runs_c32", (long_x, long_s, long_n), (5, 7, 61, 32))):
+        e = bitwise_against_plain("chunk_stream", [p1.chunk_stream(xx, ss, nn, *dd)],
+                                  [p1.chunk_stream_plain(xx, ss, nn, *dd)])
         err = max(err, e)
         log("probes", f"P1 {case}: {int(nn.sum())} live chunks, bitwise equal to "
             f"the plain version (max abs err {e})")
-    dims = (n_ty * n_tx, th, tw, c)
     live = int(nch.sum())
 
     def p1_library():  # gather each tile's run with one index, then sum
@@ -1091,18 +1266,24 @@ def probe_checks(head_k1, head_dims, dev, card) -> dict:
         acc = got.sum((2, 3, 4))
         return acc[..., None] + torch.arange(th * tw, device=dev, dtype=torch.float32)
 
-    ms = cuda_ms(lambda: p1.chunk_stream(*head, *dims), 50)
+    times = probe_times(p1, p3, head, dims, dev)
+    wrapper_ms, kernel_ms = times["p1"], times["p1_kernel"]
+    empty_ms = cuda_ms(p1.empty_launch, 50)
+    empty_dev = kernel_device_ms(p1.empty_launch, "empty_kernel")
     plain_ms = cuda_ms(lambda: p1.chunk_stream_plain(*head, *dims), 3)
     lib_ms = cuda_ms(p1_library, 10)
     nbytes = live * 8 * c * 4 + 2 * start.numel() * 4 + start.numel() * th * tw * 4
     bound = nbytes / PEAK_BYTES * 1e3
-    log("probes", f"P1 headline runs ({card}): {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, library (index + sum) {lib_ms:.4f} ms, bound {bound:.5f} ms by "
-        f"bytes ({nbytes} B)")
+    log("probes", f"P1 headline runs ({card}): kernel {kernel_ms} ms on the card "
+        f"(profiler), wrapper {wrapper_ms:.4f} ms (CUDA events, back to back); "
+        f"an empty launch {empty_dev} ms on the card, {empty_ms:.4f} ms back to "
+        f"back; plain {plain_ms:.4f} ms, library (index + sum) {lib_ms:.4f} ms, "
+        f"bound {bound:.5f} ms by bytes ({nbytes} B)")
     entries["chunk_stream"] = dict(
         name="chunk_stream", route="cuda",
         source="worldrenderer_tpu_torch/csrc/probe_chunk_stream.cu",
-        replaces="tools/spike_dma.py:53", launches=0, max_abs_err=err, ms=ms,
+        replaces="tools/spike_dma.py:53", launches=0, max_abs_err=err,
+        ms=wrapper_ms if kernel_ms is None else kernel_ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=lib_ms)
 
     # P2: the TPU probe's record-table shape.
@@ -1125,25 +1306,46 @@ def probe_checks(head_k1, head_dims, dev, card) -> dict:
         plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=lib_ms)
     del x3
 
-    # P3: both axes at R 2048, T 400; the JSON entry is axis 0's (the
-    # windowed texture sampler's candidate primitive).
+    # P3: both axes at R 2048, T 400, then where the indices wrap; the
+    # JSON entry is axis 0's (the windowed texture sampler's candidate
+    # primitive).
     clock = max_sm_clock_hz()
     loads = p3.T * p3.R * p3.LANES
     bound = loads * 4 / (SMEM_BYTES_PER_CLOCK_SM * N_SMS * clock) * 1e3
+    err = 0.0
+    for axis, rows, first in ((0, 300, "last"), (0, 300, "zero"), (1, 300, "last"),
+                              (1, 300, "zero"), (0, 5, "random"), (1, 5, "random"),
+                              (0, 37, "random"), (1, 37, "random")):
+        xs, idx = p3.probe_inputs(axis, dev, rows=rows)
+        m = rows if axis == 0 else p3.LANES
+        if first != "random":
+            idx = torch.full_like(idx, m - 1 if first == "last" else 0)
+        e = bitwise_against_plain("smem_gather", [p3.smem_gather(xs, idx, p3.T, axis)],
+                                  [p3.smem_gather_plain(xs, idx, p3.T, axis)])
+        err = max(err, e)
+    log("probes", "P3 wraps (T 400; axis 0 and 1 at R 300 from M - 1 and from "
+        "0, at R 5 and 37 from random indices): bitwise equal to the plain "
+        f"version (max abs err {err})")
     res = {}
     for axis in (1, 0):
         xs, idx = p3.probe_inputs(axis, dev)
         e = bitwise_against_plain("smem_gather", [p3.smem_gather(xs, idx, p3.T, axis)],
                                   [p3.smem_gather_plain(xs, idx, p3.T, axis)])
-        ms = cuda_ms(lambda: p3.smem_gather(xs, idx, p3.T, axis), 10)
+        ms, dev_ms = times[f"p3_axis{axis}"], times[f"p3_axis{axis}_kernel"]
         # The plain version is the library call: torch.gather and an add, T
         # times.
         plain_ms = cuda_ms(lambda: p3.smem_gather_plain(xs, idx, p3.T, axis), 2)
-        res[axis] = (e, ms, plain_ms)
+        res[axis] = (max(e, err), ms if dev_ms is None else dev_ms, plain_ms)
+        occ = p3.occupancy(axis)
         log("probes", f"P3 axis {axis} (R {p3.R}, T {p3.T}) bitwise equal to the "
-            f"plain version ({card}): {ms:.4f} ms ({ms * 1e6 / loads:.4f} ns per "
-            f"gathered element), plain = library (gather x T) {plain_ms:.4f} ms, "
-            f"bound {bound:.5f} ms by shared-memory bytes at {clock / 1e6:.0f} MHz")
+            f"plain version ({card}): kernel {dev_ms} ms on the card (profiler), "
+            f"at T 0 {times[f'p3_axis{axis}_t0_kernel']} ms, wrapper {ms:.4f} "
+            f"ms ({res[axis][1] * 1e9 / loads:.3f} ps per load), plain = "
+            f"library (gather x T) {plain_ms:.4f} ms, "
+            f"bound {bound:.5f} ms by shared-memory bytes at {clock / 1e6:.0f} "
+            f"MHz ({100 * bound / res[axis][1]:.1f}%); {occ['registers']} "
+            f"registers per thread, {occ['shared_bytes']} B shared memory per "
+            f"block, {occ['blocks_per_sm']} resident blocks per SM")
     rng = np.random.default_rng(0)
     table = torch.from_numpy(rng.random((1 << 20, 12)).astype(np.float32)).to(dev)
     rows = torch.from_numpy(rng.integers(0, 1 << 20, (8192,))).to(dev)
@@ -1443,9 +1645,52 @@ def k1_k4_readings(port_root: Path) -> int:
     return 0
 
 
+def probe_readings(port_root: Path) -> int:
+    """``python3 chip_smoke.py --probes ROOT``: only P1's and P3's times
+    (``probe_times``: each wrapper's and each kernel's alone), with the
+    port imported from ROOT, to compare two versions in turns on one card
+    as ``--k1-k4`` does; ``[probes] digest`` lines hold P3's output bits,
+    which every version must agree on."""
+    global cuda_ms
+    sys.path.insert(0, str(port_root.resolve()))
+    import worldrenderer_tpu_torch as pt
+    from worldrenderer_tpu_torch.ops import gbuffer as gb
+    from worldrenderer_tpu_torch.probes import chunk_stream as p1
+    from worldrenderer_tpu_torch.probes import cuda_ms
+    from worldrenderer_tpu_torch.probes import smem_gather as p3
+
+    if Path(pt.__file__).resolve().parent.parent != port_root.resolve():
+        print(f"chip_smoke: the port was not imported from {port_root}",
+              file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = smi()
+    mesh, cam = headline_scene(pt, dev)
+    (head_k1, hdims), _ = k1_inputs_for(pt, gb, mesh, cam, 512)
+    _, th, tw, n_ty, n_tx, c = hdims
+    x = torch.randn((head_k1[2].shape[0], 8, head_k1[0].shape[2]),
+                    generator=torch.Generator(device=dev).manual_seed(11),
+                    device=dev)
+    times = probe_times(p1, p3, (x, head_k1[2], head_k1[3]),
+                        (n_ty * n_tx, th, tw, c), dev)
+    log("probes", f"{card}; the port from {port_root}: " + ", ".join(
+        f"{k} {v if v is None else round(v, 5)} ms" for k, v in times.items()))
+    h = hashlib.sha256()
+    for axis in (1, 0):
+        xs, idx = p3.probe_inputs(axis, dev)
+        h.update(p3.smem_gather(xs, idx, p3.T, axis).cpu().numpy().tobytes())
+    log("probes", f"digest of P3's outputs {h.hexdigest()[:16]}")
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--k1-k4":
         return k1_k4_readings(Path(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--probes":
+        return probe_readings(Path(sys.argv[2]))
     # The port must come from the checkout this script sits in (first on
     # sys.path), never from an installed copy: alone in a directory, the
     # script fails.
@@ -1485,6 +1730,8 @@ def main() -> int:
         for line in logs[lib].splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{lib}: {line.strip()}")
+
+    camera_phase(pt, dev)
 
     # Phase 3: K1 against its plain version on the card.
     mesh, cam = headline_scene(pt, dev)
@@ -1632,6 +1879,9 @@ def main() -> int:
     tile_launches = tiles_phase(pt, gc, zc, rk, dev, card)
     tile_launches["raster_zid_tiles"] += atlas_phase(pt, gc, zc, rk, dev, card)
     launches += classic_phase(pt, gc, zc, rk, dev, card)
+    for name, n in flat_backends_phase(pt, gb, gc, zc, rk, dev, card,
+                                       head_cfg).items():
+        tile_launches[name] += n
     # Slice 3's paths, the same way.
     launches += texture_phase(pt, gb, gc, zc, rk, dev, card)
     for name, n in attr_phase(pt, gc, zc, rk, dev, card).items():

@@ -220,6 +220,31 @@ def test_normalize_rows_matches_normalize(rng):
                                   np.asarray(j_normalize(jnp.asarray(rows))))
 
 
+def test_normalize_takes_the_reference_keywords():
+    """``normalize(x, axis=...)`` as the JAX package names it, with ``dim``
+    kept as an alias."""
+    from worldrenderer_tpu.camera import normalize as j_normalize
+
+    x = np.array([[3.0, 0.0], [4.0, 1.0]], np.float32)
+    want = np.asarray(j_normalize(jnp.asarray(x), axis=0))
+    np.testing.assert_allclose(want, [[0.6, 0.0], [0.8, 1.0]], rtol=1e-6)
+    t = torch.from_numpy(x)
+    np.testing.assert_array_equal(pt.normalize(t, axis=0).numpy(), want)
+    np.testing.assert_array_equal(pt.normalize(t, dim=0).numpy(), want)
+    np.testing.assert_array_equal(
+        pt.normalize(t, axis=-1, eps=1e-12).numpy(),
+        np.asarray(j_normalize(jnp.asarray(x), axis=-1, eps=1e-12)))
+
+
+def test_quantized_texture_registry_takes_arr():
+    """``register_quantized_texture(arr=...)`` and
+    ``is_registered_quantized_texture(arr=...)``, the reference's keyword."""
+    tex = torch.zeros((4, 4, 3))
+    pt.register_quantized_texture(arr=tex)
+    assert pt.is_registered_quantized_texture(arr=tex)
+    assert not pt.is_registered_quantized_texture(arr=tex.clone())
+
+
 def test_to_int32_sat_matches_xla():
     vals = np.array([np.nan, np.inf, -np.inf, 3e9, -3e9, 2.5, -2.5,
                      2.0**31, -(2.0**31), 2147483520.0], np.float32)

@@ -23,9 +23,12 @@ from ._device import DeviceLike, as_f32, resolve_device
 ArrayLike = Union[torch.Tensor, np.ndarray, Sequence[float], float, int]
 
 
-def normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
-    """L2-normalize along ``dim``: x / max(||x||, eps)."""
-    norm = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+def normalize(x: torch.Tensor, axis: int = -1, eps: float = 1e-12,
+              dim: Optional[int] = None) -> torch.Tensor:
+    """L2-normalize along ``axis`` (``dim``, PyTorch's name, is an alias):
+    x / max(||x||, eps)."""
+    norm = torch.linalg.vector_norm(x, dim=axis if dim is None else dim,
+                                    keepdim=True)
     return x / torch.clamp(norm, min=eps)
 
 
@@ -215,40 +218,43 @@ def get_camera(
     device: DeviceLike = None,
 ) -> Camera:
     """Build a perspective Camera batch on ``device`` (the card unless
-    ``device="cpu"``).
+    ``device="cpu"``). The matrices are built on the host and then moved,
+    so they have the same bits on every device (the card's ``cos``,
+    ``sin``, ``tan``, norms and matrix products round otherwise).
 
     ``perturb_camera_position`` jitters camera positions by uniform noise
     in [-p, p], drawn on the CPU from ``generator`` (default: a generator
     seeded with 0). Its numbers differ from the JAX package's PRNG."""
     dev = resolve_device(device)
+    host = torch.device("cpu")
     if w2c is None:
         if c2w is None:
-            c2w = get_c2w(elevation_deg, distance, azimuth_deg, num_views, dev)
-        c2w = as_f32(c2w, dev)
+            c2w = get_c2w(elevation_deg, distance, azimuth_deg, num_views, host)
+        c2w = as_f32(c2w, host)
         if perturb_camera_position > 0.0:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
             noise = torch.rand(c2w[:, :3, 3].shape, generator=generator)
             noise = (noise * 2.0 - 1.0) * perturb_camera_position
             c2w = c2w.clone()
-            c2w[:, :3, 3] += noise.to(dev)
+            c2w[:, :3, 3] += noise
         cam_pos = c2w[:, :3, 3]
         # affine_inverse, not rigid_inverse: an external c2w may carry scale.
         w2c = affine_inverse(c2w)
     else:
-        w2c = as_f32(w2c, dev)
+        w2c = as_f32(w2c, host)
         cam_pos = None
         c2w = None
     if proj_mtx is None:
         proj_mtx = get_projection_matrix(
-            fovy_deg, aspect_wh=aspect_wh, near=near, far=far, device=dev
+            fovy_deg, aspect_wh=aspect_wh, near=near, far=far, device=host
         )
-    proj_mtx = as_f32(proj_mtx, dev)
+    proj_mtx = as_f32(proj_mtx, host)
     if proj_mtx.shape[0] == 1 and w2c.shape[0] > 1:
         proj_mtx = proj_mtx.expand(w2c.shape[0], 4, 4)
     mvp_mtx = torch.matmul(proj_mtx, w2c)
     return Camera(c2w=c2w, w2c=w2c, proj_mtx=proj_mtx, mvp_mtx=mvp_mtx,
-                  cam_pos=cam_pos)
+                  cam_pos=cam_pos).to(dev)
 
 
 def get_orthogonal_camera(
@@ -264,13 +270,14 @@ def get_orthogonal_camera(
     far: float = 100.0,
     device: DeviceLike = None,
 ) -> Camera:
-    """Build an orthographic Camera batch on ``device``."""
+    """Build an orthographic Camera batch on ``device``, its matrices built
+    on the host and then moved (see :func:`get_camera`)."""
     dev = resolve_device(device)
-    c2w = get_c2w(elevation_deg, distance, azimuth_deg, num_views, dev)
+    c2w = get_c2w(elevation_deg, distance, azimuth_deg, num_views)
     w2c = rigid_inverse(c2w)
     proj_mtx = get_orthogonal_projection_matrix(
-        c2w.shape[0], left, right, bottom, top, near=near, far=far, device=dev
+        c2w.shape[0], left, right, bottom, top, near=near, far=far
     )
     mvp_mtx = torch.matmul(proj_mtx, w2c)
     return Camera(c2w=c2w, w2c=w2c, proj_mtx=proj_mtx, mvp_mtx=mvp_mtx,
-                  cam_pos=c2w[:, :3, 3])
+                  cam_pos=c2w[:, :3, 3]).to(dev)

@@ -253,15 +253,15 @@ def _unify_cached(mesh: TexturedMesh) -> TexturedMesh:
     return hit._replace(texture=mesh.texture)
 
 
-def register_quantized_texture(tex: torch.Tensor) -> None:
+def register_quantized_texture(arr: torch.Tensor) -> None:
     """Mark a texture tensor (usually on the card) as exactly
     255-quantized; the caller verified that on the host-side source. The
     mark goes when the tensor is collected."""
-    _QUANT_TEX_CACHE.put([tex], True)
+    _QUANT_TEX_CACHE.put([arr], True)
 
 
-def is_registered_quantized_texture(tex) -> bool:
-    return _QUANT_TEX_CACHE.get([tex]) is not None
+def is_registered_quantized_texture(arr) -> bool:
+    return _QUANT_TEX_CACHE.get([arr]) is not None
 
 
 # ---------------------------------------------------------------------------

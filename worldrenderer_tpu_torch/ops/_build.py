@@ -16,7 +16,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -32,6 +34,7 @@ NVCC_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -93,16 +96,44 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def occupancy(name: str, symbol: str, c: int, tile_w: int) -> Dict[str, int]:
-    """A kernel's resources at chunk size ``c`` and tile width ``tile_w``,
-    from the occupancy query ``symbol`` that library ``name`` exports:
-    registers per thread, shared memory per block (bytes) and resident
-    blocks per SM."""
-    fn = getattr(load(name), symbol)
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
-    fn.restype = ctypes.c_int
+def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of library ``name``, returning an int
+    (a CUDA error code), loaded and typed once."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[(name, symbol)] = fn
+    return fn
+
+
+def launch(name: str, symbol: str, argtypes: Sequence, device: torch.device,
+           *args) -> None:
+    """Call the launcher ``symbol`` of library ``name`` with ``args`` and,
+    last, the current stream of ``device``, the CUDA device the kernel's
+    tensors lie on; ``argtypes`` types ``args``. A device other than the
+    current one is made current around the call. Raises on a nonzero CUDA
+    error."""
+    fn = function(name, symbol, [*argtypes, ctypes.c_void_p])
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: CUDA error {err}")
+
+
+def occupancy(name: str, symbol: str, a: int, b: int) -> Dict[str, int]:
+    """A kernel's resources from the occupancy query ``symbol`` that library
+    ``name`` exports, at its two shape arguments (the tile kernels' chunk
+    size and tile width): registers per thread, shared memory per block
+    (bytes) and resident blocks per SM."""
+    fn = function(name, symbol,
+                  [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3)
     regs, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = fn(c, tile_w, ctypes.byref(regs), ctypes.byref(smem),
+    err = fn(a, b, ctypes.byref(regs), ctypes.byref(smem),
              ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"{symbol} failed: CUDA error {err}")

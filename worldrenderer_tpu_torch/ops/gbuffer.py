@@ -6,12 +6,18 @@ two screen-affine planes, a(p) = [sum_i e_i(p) invw_i a_i] /
 [sum_i e_i(p) invw_i]; so coverage, depth, attribute numerators and the
 shared denominator are all plane evaluations. Two paths:
 
-* the flat path (at least ``bin_sort_pairs_min_tris`` triangles): sorted
-  flat binning, each tile's entries laid out as 128-aligned chunks of
-  rebased plane records, and kernel K1 (``gbuffer_cuda.py``);
-* the per-tile path (below it): the classic setup, dense per-tile binning,
-  a (3, R*K) block of rebased plane rows per tile with a constant id plane,
-  and kernel K2, or K3 for ``backend="vpu_pallas"`` (``zattr_cuda.py``).
+* the DMA path (at least ``bin_sort_pairs_min_tris`` triangles, and the
+  backend "auto", "fused_pallas" or "pallas"): sorted flat binning, each
+  tile's entries laid out as 128-aligned chunks of rebased plane records,
+  and kernel K1 (``gbuffer_cuda.py``);
+* the per-tile path (every other case): the classic setup, a (3, R*K)
+  block of rebased plane rows per tile with a constant id plane, and
+  kernel K2, or K3 for ``backend="vpu_pallas"`` (``zattr_cuda.py``). At
+  scale the rows come from the same flat binning, each tile's window of
+  the sorted list; below it from dense per-tile binning.
+This is the JAX package's routing: its ``_gbuffer_core`` takes the DMA
+path for ``fused_pallas`` alone, and its per-tile path evaluates
+``fused_xla`` with ``_zattr_tile_xla``, whose contract is K2's.
 """
 
 from __future__ import annotations
@@ -28,12 +34,16 @@ from .rasterize import (
     RasterizerConfig,
     _auto_cap,
     _bin_flat,
-    _binned_setup,
+    _bin_triangles,
     _check_ported,
+    _classic_layout,
     _clip_corners,
     _CULL_MARGIN,
     _detile,
     _gather_tile_rows,
+    _gather_tile_rows_flat,
+    _K1_BACKENDS,
+    _tile_origins,
     _triangle_setup_t,
     _TriSetup,
     _TriSetupT,
@@ -240,16 +250,7 @@ def _k1_inputs(pos, tri, v_attr, height, width, config, pos_world=None,
         v_all = _clip_corners(pos, tri)
 
     setup = _triangle_setup_t(v_all, width, height, config.backface_cull)
-    flat = _bin_flat(
-        setup, width, height, tile_h, tile_w,
-        config.bin_span_tiles_y, config.bin_span_tiles_x, config.bin_huge,
-        config.bin_flat_cap_factor,
-        n_med=config.bin_med, med_span_y=config.bin_med_span_y,
-        med_span_x=config.bin_med_span_x,
-        cap_abs=config.bin_flat_cap_abs,
-        small_cap=config.bin_small_cap,
-        cull_margin=_CULL_MARGIN if config.bin_cull else 0.0,
-    )
+    flat = _bin_flat_config(setup, width, height, config)
     if uv_mode:
         attr_rows = _attr_planes_t(setup, _uv_corner_attrs_t(t_total, pos.device))
     elif v_attr is not None:
@@ -267,6 +268,20 @@ def _k1_inputs(pos, tri, v_attr, height, width, config, pos_world=None,
     recs = _flat_chunks_finish(rec, chunk_tile, n_tx, tile_w, tile_h, c)
     return (recs, flat_ids, start_chunks, n_chunks), (nv, tile_h, tile_w,
                                                        n_ty, n_tx, c)
+
+
+def _bin_flat_config(setup, width, height, config):
+    """:func:`_bin_flat` with ``config``'s tiles, tiers, caps and cull."""
+    return _bin_flat(
+        setup, width, height, config.tile_h, config.tile_w,
+        config.bin_span_tiles_y, config.bin_span_tiles_x, config.bin_huge,
+        config.bin_flat_cap_factor,
+        n_med=config.bin_med, med_span_y=config.bin_med_span_y,
+        med_span_x=config.bin_med_span_x,
+        cap_abs=config.bin_flat_cap_abs,
+        small_cap=config.bin_small_cap,
+        cull_margin=_CULL_MARGIN if config.bin_cull else 0.0,
+    )
 
 
 def _attr_from_vals(vals, mask):
@@ -300,40 +315,68 @@ def _gbuffer_dma_batched(
     return mask, z, tri_id, attr
 
 
-def _zattr_inputs(pos, tri, v_attr, height, width, config, tri_attr=None):
-    """Classic setup, a constant id plane (a = b = 0, g = triangle id)
-    beside the attribute planes, dense binning and the tile row gather for
-    a batch of views: K2's and K3's inputs ``(coeffs, counts)`` and their
-    static arguments ``(n_vals, tile_h, tile_w, chunk)``."""
+def _zattr_inputs(pos, tri, v_attr, height, width, config, tri_attr=None,
+                  uv_mode=False):
+    """Classic setup, a constant id plane (a = b = 0, g = triangle id) beside
+    the attribute planes, binning and the tile row gather for a batch of
+    views: K2's and K3's inputs ``(coeffs, counts)`` and their static
+    arguments ``(n_vals, tile_h, tile_w, chunk)``. At scale
+    (:func:`_use_flat`) the rows are windows of ``k_cap`` entries of the
+    flat binning, below it dense per-tile lists; ``k_cap`` is
+    ``max_tris_per_tile`` (or the automatic cap) and at most T.
+    ``uv_mode``: the attributes are the (u, v) barycentrics."""
     bsz, t_total = pos.shape[0], tri.shape[0]
+    if t_total >= 2**24:
+        raise ValueError(
+            f"the per-tile path's f32 id plane is exact below 2^24 triangles "
+            f"(got {t_total}); use backend='fused_pallas' or decimate first")
     dev = pos.device
-    n_attr = 0 if v_attr is None else v_attr.shape[-1]
-    setup, ids, counts, origins = _binned_setup(pos, tri, height, width,
-                                                config)
+    tile_h, tile_w = config.tile_h, config.tile_w
+    n_ty, n_tx = -(-height // tile_h), -(-width // tile_w)
+    setup_t = _triangle_setup_t(_clip_corners(pos, tri), width, height,
+                                config.backface_cull, z_dot=True)
+    setup = _classic_layout(setup_t)
     id_plane = torch.zeros((bsz, t_total + 1, 1, 3), device=dev)
     id_plane[..., 0, 2] = torch.arange(t_total + 1, dtype=torch.float32,
                                        device=dev)
-    if v_attr is not None:
+    if uv_mode:
+        n_attr = 2
+        attr_planes = _attr_planes(
+            setup, _uv_corner_attrs_t(t_total, dev).permute(2, 1, 0))
+    elif v_attr is not None:
+        n_attr = v_attr.shape[-1]
         attr_planes = _attr_planes(setup, v_attr[tri if tri_attr is None
                                                  else tri_attr])
     else:
+        n_attr = 0
         attr_planes = torch.zeros((bsz, t_total + 1, 1, 3), device=dev)
     all_planes = torch.cat([setup.planes, id_plane, attr_planes], dim=2)
-    coeffs = _gather_tile_rows(all_planes, setup.valid, ids, origins)
-    return (coeffs, counts.reshape(-1)), (n_attr + 1, config.tile_h,
-                                          config.tile_w, config.chunk)
+    k_cap = min(config.max_tris_per_tile or _auto_cap(t_total, n_ty * n_tx),
+                t_total)
+    if _use_flat(config, t_total, n_ty * n_tx):
+        flat = _bin_flat_config(setup_t, width, height, config)
+        coeffs, counts = _gather_tile_rows_flat(all_planes, setup.valid, flat,
+                                                k_cap, n_tx, tile_w, tile_h)
+    else:
+        ids, counts = _bin_triangles(setup, width, height, tile_h, tile_w,
+                                     k_cap)
+        origins = _tile_origins(n_ty, n_tx, tile_h, tile_w, dev)
+        coeffs = _gather_tile_rows(all_planes, setup.valid, ids, origins)
+        counts = counts.reshape(-1)
+    return (coeffs, counts), (n_attr + 1, tile_h, tile_w, config.chunk)
 
 
-def _gbuffer_single(pos, tri, v_attr, height, width, config, tri_attr=None):
+def _gbuffer_single(pos, tri, v_attr, height, width, config, tri_attr=None,
+                    uv_mode=False):
     """The per-tile path for a batch of views (the JAX package's per-view
-    ``_gbuffer_single`` below the flat path): the tile rows of
-    :func:`_zattr_inputs`, then ONE launch of K2 — or K3 for
-    ``backend="vpu_pallas"`` — over every (view, tile)."""
+    ``_gbuffer_single``): the tile rows of :func:`_zattr_inputs`, then ONE
+    launch of K2 — or K3 for ``backend="vpu_pallas"`` — over every (view,
+    tile)."""
     tile_h, tile_w = config.tile_h, config.tile_w
     n_ty, n_tx = -(-height // tile_h), -(-width // tile_w)
     bsz = pos.shape[0]
     inputs, dims = _zattr_inputs(pos, tri, v_attr, height, width, config,
-                                 tri_attr=tri_attr)
+                                 tri_attr=tri_attr, uv_mode=uv_mode)
     kernel = zattr_tiles_vpu if config.backend == "vpu_pallas" else zattr_tiles
     z_t, id_t, v_t = kernel(*inputs, *dims)
     z = _detile(z_t, bsz, n_ty, n_tx, height, width)
@@ -342,7 +385,7 @@ def _gbuffer_single(pos, tri, v_attr, height, width, config, tri_attr=None):
     z = torch.where(mask, z, 0.0)
     tri_id = torch.where(mask, tid.to(torch.int32) + 1, 0)
     attr = None
-    if v_attr is not None:
+    if v_attr is not None or uv_mode:
         attr = _attr_from_vals(_detile(v_t, bsz, n_ty, n_tx, height, width),
                                mask)
     return mask, z, tri_id, attr
@@ -350,9 +393,11 @@ def _gbuffer_single(pos, tri, v_attr, height, width, config, tri_attr=None):
 
 def _gbuffer_core(pos, tri, v_attr, height, width, config, tri_attr=None,
                   pos_world=None, mvp=None):
-    """The flat path at scale, else the per-tile path."""
+    """The DMA path (K1) at scale for the K1 backends, else the per-tile
+    path."""
     n_tiles = (-(-height // config.tile_h)) * (-(-width // config.tile_w))
-    if _use_flat(config, tri.shape[0], n_tiles):
+    if (config.backend in _K1_BACKENDS
+            and _use_flat(config, tri.shape[0], n_tiles)):
         return _gbuffer_dma_batched(
             pos, tri, v_attr, height, width, config, pos_world=pos_world,
             mvp=mvp, tri_attr=tri_attr,
@@ -382,10 +427,13 @@ def rasterize_gbuffer(
     world corners gathered once. Returns mask / z / tri_id / attr.
 
     At least ``config.bin_sort_pairs_min_tris`` triangles (and int32 sort
-    keys) take the flat path and K1, fewer the per-tile path and K2 (K3 for
-    ``backend="vpu_pallas"``). Triangle ids are exact int32 at any count
-    (the JAX package's 2^24 limit comes from its float id rows, which the
-    flat path here does not have)."""
+    keys) take the flat binning; there the backends "auto", "fused_pallas"
+    and "pallas" run K1, as the JAX package's ``fused_pallas`` runs its DMA
+    kernel. Every other case runs the per-tile path: K3 for
+    ``backend="vpu_pallas"``, K2 for the rest, on flat-binned tile rows at
+    scale. Triangle ids are exact int32 in K1 at any count (the JAX
+    package's 2^24 limit comes from its float id rows, which K1 here does
+    not have); K2's and K3's constant id plane is f32, exact below 2^24."""
     dev = resolve_device(device)
     _check_ported(config)
     height, width = resolution

@@ -184,18 +184,13 @@ def gbuffer_tiles(
     vals = torch.empty((bsz, n_vals, ph, pw), dtype=torch.float32, device=dev)
     if bsz == 0:
         return z, idm, vals
-    fn = _build.load("gbuffer_tiles").gbuffer_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        err = fn(
-            recs.data_ptr(), ids.data_ptr(), start_chunks.data_ptr(),
-            n_chunks.data_ptr(), z.data_ptr(), idm.data_ptr(), vals.data_ptr(),
-            bsz, n_rows, l_cap, n_ty, n_tx, tile_h, tile_w, n_vals, c,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"gbuffer_tiles launch failed: CUDA error {err}")
+    _build.launch(
+        "gbuffer_tiles", "gbuffer_tiles_launch",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9, dev,
+        recs.data_ptr(), ids.data_ptr(), start_chunks.data_ptr(),
+        n_chunks.data_ptr(), z.data_ptr(), idm.data_ptr(), vals.data_ptr(),
+        bsz, n_rows, l_cap, n_ty, n_tx, tile_h, tile_w, n_vals, c,
+    )
     launch_count += 1
     return z, idm, vals
 

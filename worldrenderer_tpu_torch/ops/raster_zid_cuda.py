@@ -121,17 +121,13 @@ def _launch(coeffs, ids, counts, tile_h, tile_w, chunk):
     idmap = torch.empty((n_tiles, tile_h, tile_w), dtype=torch.int32, device=dev)
     if n_tiles == 0:
         return z, idmap
-    fn = _build.load("raster_zid_tiles").raster_zid_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        err = fn(
-            coeffs.data_ptr(), ids.data_ptr(), counts.data_ptr(), z.data_ptr(),
-            idmap.data_ptr(), n_tiles, four_k // 4, tile_h, tile_w,
-            chunk_size(chunk), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"raster_zid_tiles launch failed: CUDA error {err}")
+    _build.launch(
+        "raster_zid_tiles", "raster_zid_tiles_launch",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5, dev,
+        coeffs.data_ptr(), ids.data_ptr(), counts.data_ptr(), z.data_ptr(),
+        idmap.data_ptr(), n_tiles, four_k // 4, tile_h, tile_w,
+        chunk_size(chunk),
+    )
     launch_count += 1
     return z, idmap
 

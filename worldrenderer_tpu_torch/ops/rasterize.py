@@ -17,7 +17,8 @@ rounds as that dot does, through ``transforms.fma_f32``.
 0 on background: below ``bin_sort_pairs_min_tris`` triangles through the
 classic setup, dense per-tile binning and kernel K4
 (``raster_zid_cuda.py``), above it through the flat G-buffer path and
-kernel K1 in uv mode.
+kernel K1 in uv mode (K2 for the "xla" backends, as the JAX package routes
+them).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device, to_int32_sat
 from .raster_zid_cuda import raster_zid_tiles
-from .tensor import BIG_NEG, fma_dot3
+from .tensor import BIG_NEG, edge0_pad_block, fma_dot3
 
 __all__ = [
     "RasterizerConfig", "DEFAULT_CONFIG", "FAST_TPU_CONFIG",
@@ -98,16 +99,23 @@ def _auto_cap(t_total: int, n_tiles: int) -> int:
     )
 
 
-# The JAX package's backend names. The flat path (at least
-# bin_sort_pairs_min_tris triangles) runs K1 for every name, classic
-# rasterize() included. Below it, rasterize_gbuffer() and render() run K3
-# for "vpu_pallas" and K2 for every other name; rasterize() runs K4 for
-# every name; render() takes its fused branch for "auto", "fused_pallas"
-# and "fused_xla" and the classic rasterize() + interpolate() branch for
-# the rest, as the JAX package's render() does. Each kernel's wrapper picks
-# the CUDA kernel or its plain version by the tensors' device.
+# The JAX package's backend names, routed as the JAX package routes them
+# on its accelerator ("auto" as "fused_pallas" / "pallas"):
+#   * rasterize_gbuffer() (render()'s fused branch): K3 for "vpu_pallas";
+#     K1 on the flat path (at least bin_sort_pairs_min_tris triangles) for
+#     the _K1_BACKENDS; K2 for every other case, on flat-binned tile rows
+#     at scale and on dense ones below it;
+#   * rasterize(): on the flat path K1 in uv mode, but for the _XLA_BACKENDS
+#     K2 in uv mode on flat-binned rows; below it K4 for every name;
+#   * render() takes its fused branch for "auto", "fused_pallas" and
+#     "fused_xla" and the classic rasterize() + interpolate() branch for
+#     the rest.
+# Each kernel's wrapper picks the CUDA kernel or its plain version by the
+# tensors' device.
 _BACKEND_NAMES = ("auto", "fused_pallas", "fused_xla", "vpu_pallas", "pallas",
                   "xla")
+_K1_BACKENDS = ("auto", "fused_pallas", "pallas")
+_XLA_BACKENDS = ("xla", "fused_xla")
 
 
 def _check_ported(config: RasterizerConfig) -> None:
@@ -779,9 +787,13 @@ def _triangle_setup(
     pos_clip (B, V, 4), tri (T, 3). The same planes as
     :func:`_triangle_setup_t` but for the z plane, which the classic setup
     contracts with an fp32 ``einsum``."""
-    st = _triangle_setup_t(
+    return _classic_layout(_triangle_setup_t(
         _clip_corners(pos_clip, tri), width, height, backface_cull, z_dot=True
-    )
+    ))
+
+
+def _classic_layout(st: _TriSetupT) -> _TriSetup:
+    """A ``_TriSetupT`` in the classic layout, views leading."""
     bsz, _, t1 = st.planes12.shape
     return _TriSetup(
         planes=st.planes12.transpose(1, 2).reshape(bsz, t1, 4, 3).contiguous(),
@@ -876,6 +888,49 @@ def _gather_tile_rows(all_planes, valid, ids, tile_origin):
     return planes.permute(0, 1, 4, 3, 2).reshape(bsz * n_tiles, 3, -1)
 
 
+def _gather_tile_rows_flat(all_planes, valid, flat, k_cap, n_tx, tile_w,
+                           tile_h):
+    """The tile rows of :func:`_gather_tile_rows` from a flat binning
+    (:func:`_bin_flat`), as the JAX package's ``_gather_tile_rows_flat``
+    builds them: every sorted entry's planes rebased to its own tile's
+    origin, then each tile's window of ``k_cap`` entries from its start.
+    Entries of a window past the tile's count (the next tiles' entries, or
+    padding) get an e0 constant of ``BIG_NEG``. all_planes (B, T+1, R, 3),
+    valid (B, T+1). Returns (coeffs (B * n_tiles, 3, R*k_cap), counts
+    (B * n_tiles,) i32, each at most k_cap)."""
+    s_tri, s_tile, starts, counts = flat
+    bsz, n_tiles = starts.shape
+    r = all_planes.shape[2]
+    dev = all_planes.device
+    bidx = torch.arange(bsz, device=dev)[:, None]
+    tri = s_tri.long()
+    ep = all_planes[bidx, tri]  # (B, L, R, 3)
+    live = valid[bidx, tri] & (s_tile < n_tiles)
+    st = torch.clamp(s_tile, 0, n_tiles - 1)
+    ox = ((st % n_tx) * tile_w).to(torch.float32)[..., None]
+    oy = ((st // n_tx) * tile_h).to(torch.float32)[..., None]
+    gamma = ep[..., 2] + ep[..., 0] * ox + ep[..., 1] * oy  # (B, L, R)
+    gamma = torch.cat(
+        [torch.where(live[..., None], gamma[..., :1], BIG_NEG), gamma[..., 1:]],
+        dim=-1,
+    )
+    ep = torch.stack([ep[..., 0], ep[..., 1], gamma], dim=-1)
+    # k_cap never-covering entries after the list, so no window is cut.
+    pad = edge0_pad_block(r, k_cap, BIG_NEG, dev).permute(2, 1, 0)
+    ep = torch.cat([ep, pad.expand(bsz, k_cap, r, 3)], dim=1)
+    j = torch.arange(k_cap, device=dev)
+    win = ep[bidx[..., None], starts.long()[..., None] + j]  # (B, n_tiles, K, R, 3)
+    used = torch.clamp(counts, max=k_cap)
+    e0g = torch.where(j < used[..., None], win[..., 0, 2], BIG_NEG)
+    win = torch.cat(
+        [torch.cat([win[..., :1, :2], e0g[..., None, None]], dim=-1),
+         win[..., 1:, :]],
+        dim=-2,
+    )
+    coeffs = win.permute(0, 1, 4, 3, 2).reshape(bsz * n_tiles, 3, r * k_cap)
+    return coeffs, used.reshape(-1)
+
+
 def _gather_tile_coeffs(
     setup: _TriSetup, ids: torch.Tensor, tile_origin: torch.Tensor
 ) -> torch.Tensor:
@@ -960,9 +1015,10 @@ def _use_flat(config: RasterizerConfig, t_total: int, n_tiles: int) -> bool:
     )
 
 
-def _binned_setup(pos, tri, height, width, config):
-    """Classic setup and dense binning for a batch of views, the per-tile
-    paths' common prep: (setup, ids, counts, tile origins)."""
+def _zid_inputs(pos, tri, height, width, config):
+    """Classic setup, dense binning and the tile coefficient gather for a
+    batch of views: (setup, K4's inputs ``(coeffs, ids, counts)``, its
+    static arguments ``(tile_h, tile_w, chunk)``)."""
     tile_h, tile_w = config.tile_h, config.tile_w
     n_ty, n_tx = -(-height // tile_h), -(-width // tile_w)
     setup = _triangle_setup(pos, tri, width, height, config.backface_cull)
@@ -971,18 +1027,9 @@ def _binned_setup(pos, tri, height, width, config):
     ids, counts = _bin_triangles(setup, width, height, tile_h, tile_w,
                                  max_per_tile)
     origins = _tile_origins(n_ty, n_tx, tile_h, tile_w, pos.device)
-    return setup, ids, counts, origins
-
-
-def _zid_inputs(pos, tri, height, width, config):
-    """The per-tile prep and the tile coefficient gather for a batch of
-    views: (setup, K4's inputs ``(coeffs, ids, counts)``, its static
-    arguments ``(tile_h, tile_w, chunk)``)."""
-    setup, ids, counts, origins = _binned_setup(pos, tri, height, width,
-                                                config)
     coeffs = _gather_tile_coeffs(setup, ids, origins)
     inputs = (coeffs, ids.reshape(-1, ids.shape[-1]), counts.reshape(-1))
-    return setup, inputs, (config.tile_h, config.tile_w, config.chunk)
+    return setup, inputs, (tile_h, tile_w, config.chunk)
 
 
 def _rasterize_tiles(pos, tri, height, width, config):
@@ -1004,9 +1051,13 @@ def _rasterize_batched(pos, tri, height, width, config):
     if _use_flat(config, tri.shape[0], n_tiles):
         # The flat path emits the whole rast contract: (u, v) are the
         # interpolated one-hot corner attributes of uv mode.
-        from .gbuffer import _gbuffer_dma_batched
+        from .gbuffer import _gbuffer_dma_batched, _gbuffer_single
 
-        _, z, tri_id, uv = _gbuffer_dma_batched(
+        if config.backend in _XLA_BACKENDS:
+            gbuffer = _gbuffer_single
+        else:
+            gbuffer = _gbuffer_dma_batched
+        _, z, tri_id, uv = gbuffer(
             pos, tri, None, height, width, config, uv_mode=True
         )
         return torch.cat(

@@ -195,17 +195,13 @@ def _launch(name, coeffs, counts, n_vals, tile_h, tile_w, chunk):
                        device=dev)
     if n_tiles == 0:
         return z, idv, vals
-    fn = getattr(_build.load("zattr_tiles"), f"{name}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        err = fn(
-            coeffs.data_ptr(), counts.data_ptr(), z.data_ptr(), idv.data_ptr(),
-            vals.data_ptr(), n_tiles, rk // (5 + n_vals), n_vals, tile_h,
-            tile_w, chunk_size(chunk), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    _build.launch(
+        "zattr_tiles", f"{name}_launch",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6, dev,
+        coeffs.data_ptr(), counts.data_ptr(), z.data_ptr(), idv.data_ptr(),
+        vals.data_ptr(), n_tiles, rk // (5 + n_vals), n_vals, tile_h,
+        tile_w, chunk_size(chunk),
+    )
     launch_counts[name] += 1
     return z, idv, vals
 

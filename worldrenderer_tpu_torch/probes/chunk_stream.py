@@ -4,10 +4,12 @@ and its entry point.
 The kernel (``csrc/probe_chunk_stream.cu``) replaces the TPU probe
 ``tools/spike_dma.py:53 run``: per (view, tile) it sums the tile's run of
 (8, c) f32 chunks of x (B, 8, L) (chunks ``starts[b, t]`` .. ``starts[b, t]
-+ n_chunks[b, t] - 1``, double-buffered into shared memory with
-``cp.async``) and writes ``sum + iota`` over the tile's (th, tw) block of
-out (B, n_tiles * th, tw). It is bound by bytes: each live chunk read once,
-each output written once, at the card's memory rate.
++ n_chunks[b, t] - 1``, loaded sixteen bytes a thread straight into
+registers) and writes ``sum + iota`` over the tile's (th, tw) block of out
+(B, n_tiles * th, tw). It is bound by bytes: each live chunk read once,
+each output written once, at the card's memory rate. The wrapper checks
+its inputs in one pass; ``ops/_build.py launch`` types the ctypes function
+once and enters no device context for a tensor on the current device.
 
     python -m worldrenderer_tpu_torch.probes.chunk_stream [--device cpu]
 """
@@ -22,39 +24,48 @@ import torch
 
 from .._device import resolve_device
 from ..ops import _build
-from ..ops.tensor import route
 from . import parse_device
 
 _THREADS = 256
+_WARP = 32
 
 # Launches of the kernel since the count was last set to 0 (the CPU path
 # does not count).
 launch_count = 0
 
-
-def _check(x, starts, n_chunks, n_tiles, c):
+def _check(x, starts, n_chunks, n_tiles, c) -> torch.device:
+    """One pass over what the kernel takes; returns the inputs' device."""
     if x.dtype != torch.float32 or x.ndim != 3 or x.shape[1] != 8:
         raise ValueError("x must be (B, 8, L) float32")
     if starts.dtype != torch.int32 or n_chunks.dtype != torch.int32:
         raise TypeError("starts and n_chunks must be int32")
-    for t in (starts, n_chunks):
-        if tuple(t.shape) != (x.shape[0], n_tiles):
-            raise ValueError(f"chunk runs must be ({x.shape[0]}, {n_tiles})")
-    if c <= 0 or c % 32 or x.shape[2] % 4:
-        raise ValueError("c must be a positive multiple of 32 and L of 4")
-    tensors = (x, starts, n_chunks)
-    if any(t.device != x.device for t in tensors):
+    runs = (x.shape[0], n_tiles)
+    if starts.shape != runs or n_chunks.shape != runs:
+        raise ValueError(f"chunk runs must be {runs}")
+    if c not in (32, 64, 128, 256) or x.shape[2] % 4:
+        raise ValueError("c must be 32, 64, 128 or 256 and L a multiple of 4")
+    dev = x.device
+    if starts.device != dev or n_chunks.device != dev:
         raise ValueError("all inputs must be on one device")
-    if not all(t.is_contiguous() for t in tensors):
+    if not (x.is_contiguous() and starts.is_contiguous()
+            and n_chunks.is_contiguous()):
         raise ValueError("all inputs must be contiguous")
+    if dev.type == "cuda":
+        if x.data_ptr() % 16:
+            raise ValueError("x must be 16-byte aligned for its 16-byte loads")
+    elif dev.type != "cpu":
+        raise ValueError(f"no P1 chunk_stream route for device {dev}")
+    return dev
 
 
 def chunk_stream_plain(x, starts, n_chunks, n_tiles: int, th: int, tw: int,
                        c: int = 128) -> torch.Tensor:
     """The kernel's contract and its order of adds in plain PyTorch: lane t
-    of 256 sums chunk elements t, t + 256, ... (flat index row * c + col)
-    of every chunk of the run in order, then a tree halves the 256
-    partials (s[t] + s[t + k], k = 128 .. 1)."""
+    of 256 sums, chunk by chunk in run order, the chunk's four-float pieces
+    t, t + 256, ... (flat index row * c + col over 4 * piece ..
+    4 * piece + 3), each piece's floats in order; then each warp of 32
+    lanes halves its partials (s[l] + s[l + k], k = 16 .. 1) and the 8 warp
+    sums halve the same way (k = 4, 2, 1)."""
     bsz, _, l = x.shape
     nch_total = l // c
     base = starts.long().clamp(0, nch_total)
@@ -66,44 +77,46 @@ def chunk_stream_plain(x, starts, n_chunks, n_tiles: int, th: int, tw: int,
     for ci in range(int(nch.max()) if nch.numel() else 0):
         live = (nch > ci)[..., None]
         ch = chunks[bidx, (base + ci).clamp(max=max(nch_total - 1, 0))]
-        for k in range(0, 8 * c, _THREADS):
-            partial = torch.where(live, partial + ch[..., k:k + _THREADS], partial)
-    k = _THREADS // 2
-    while k:
-        partial = partial[..., :k] + partial[..., k:2 * k]
-        k //= 2
+        for lo in range(0, 8 * c, 4 * _THREADS):  # pieces t + 256 q
+            piece = ch[..., lo:lo + 4 * _THREADS].unflatten(-1, (-1, 4))
+            m = piece.shape[2]
+            for k in range(4):
+                partial[..., :m] = torch.where(
+                    live, partial[..., :m] + piece[..., k], partial[..., :m])
+    s = partial.unflatten(-1, (_THREADS // _WARP, _WARP))
+    for k in (16, 8, 4, 2, 1):
+        s = s[..., :k] + s[..., k:2 * k]
+    s = s[..., 0]
+    for k in (4, 2, 1):
+        s = s[..., :k] + s[..., k:2 * k]
     iota = torch.arange(th * tw, dtype=torch.float32, device=x.device)
-    return (partial + iota).reshape(bsz, n_tiles * th, tw)
+    return (s + iota).reshape(bsz, n_tiles * th, tw)
 
 
 def chunk_stream(x, starts, n_chunks, n_tiles: int, th: int, tw: int,
                  c: int = 128) -> torch.Tensor:
     """P1 on the inputs' device: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. Returns out (B, n_tiles * th, tw) f32."""
-    _check(x, starts, n_chunks, n_tiles, c)
+    global launch_count
+    dev = _check(x, starts, n_chunks, n_tiles, c)
+    if dev.type == "cpu":
+        return chunk_stream_plain(x, starts, n_chunks, n_tiles, th, tw, c)
+    out = torch.empty((x.shape[0], n_tiles * th, tw), dtype=torch.float32,
+                      device=dev)
+    _build.launch("probe_chunk_stream", "chunk_stream_launch",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6, dev,
+                  x.data_ptr(), starts.data_ptr(), n_chunks.data_ptr(),
+                  out.data_ptr(), x.shape[0], x.shape[2], n_tiles, th, tw, c)
+    launch_count += 1
+    return out
 
-    def launch():
-        global launch_count
-        if x.data_ptr() % 16:
-            raise ValueError("x must be 16-byte aligned for cp.async")
-        out = torch.empty((x.shape[0], n_tiles * th, tw), dtype=torch.float32,
-                          device=x.device)
-        fn = _build.load("probe_chunk_stream").chunk_stream_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        with torch.cuda.device(x.device):
-            err = fn(x.data_ptr(), starts.data_ptr(), n_chunks.data_ptr(),
-                     out.data_ptr(), x.shape[0], x.shape[2], n_tiles, th, tw, c,
-                     torch.cuda.current_stream(x.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"chunk_stream launch failed: CUDA error {err}")
-        launch_count += 1
-        return out
 
-    return route("P1 chunk_stream", x.device,
-                 lambda: chunk_stream_plain(x, starts, n_chunks, n_tiles, th,
-                                            tw, c),
-                 launch)
+def empty_launch() -> None:
+    """One launch of an empty kernel on the current device's stream: what a
+    launch costs, the context of the probe's times (not a kernel of the
+    port: no count)."""
+    _build.launch("probe_chunk_stream", "empty_launch", [],
+                  torch.device("cuda"))
 
 
 def main(argv=None) -> int:

@@ -6,7 +6,7 @@ The kernel (``csrc/probe_smem_gather.cu``) replaces the TPU probe
 ``acc += take_along_axis(x, (idx0 + i) mod M, axis)`` over x, idx0
 (R, 128), M = R for axis 0 and 128 for axis 1, with x staged in shared
 memory. It is bound by shared-memory bandwidth: T * R * 128 four-byte
-loads. The probe's baseline, the texture path's quad-table row gather
+loads, which the kernel keeps in distinct banks (see its source). The probe's baseline, the texture path's quad-table row gather
 (8,192 rows of a (1M, 12) table), is a PyTorch index here, not a kernel.
 
     python -m worldrenderer_tpu_torch.probes.smem_gather [--device cpu]
@@ -22,7 +22,6 @@ import torch
 
 from .._device import resolve_device
 from ..ops import _build
-from ..ops.tensor import route
 from . import cuda_ms, parse_device
 
 R = 2048  # rows per gather op (window rows = gathered elements per op)
@@ -32,7 +31,6 @@ LANES = 128
 # Launches of the kernel since the count was last set to 0 (the CPU path
 # does not count).
 launch_count = 0
-
 
 def smem_gather_plain(x: torch.Tensor, idx: torch.Tensor, t_reps: int,
                       axis: int) -> torch.Tensor:
@@ -49,6 +47,7 @@ def smem_gather(x: torch.Tensor, idx: torch.Tensor, t_reps: int,
                 axis: int) -> torch.Tensor:
     """P3 on the inputs' device: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
+    global launch_count
     if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != LANES:
         raise ValueError(f"x must be (R, {LANES}) float32")
     if idx.dtype != torch.int32 or idx.shape != x.shape:
@@ -57,23 +56,27 @@ def smem_gather(x: torch.Tensor, idx: torch.Tensor, t_reps: int,
         raise ValueError("axis must be 0 or 1 and t_reps >= 0")
     if idx.device != x.device or not (x.is_contiguous() and idx.is_contiguous()):
         raise ValueError("x and idx must be contiguous, on one device")
+    if x.device.type == "cpu":
+        return smem_gather_plain(x, idx, t_reps, axis)
+    if x.device.type != "cuda":
+        raise ValueError(f"no P3 smem_gather route for device {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned for its 16-byte loads")
+    out = torch.empty_like(x)
+    _build.launch("probe_smem_gather", "smem_gather_launch",
+                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3, x.device,
+                  x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0],
+                  t_reps, axis)
+    launch_count += 1
+    return out
 
-    def launch():
-        global launch_count
-        out = torch.empty_like(x)
-        fn = _build.load("probe_smem_gather").smem_gather_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        with torch.cuda.device(x.device):
-            err = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0],
-                     t_reps, axis, torch.cuda.current_stream(x.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"smem_gather launch failed: CUDA error {err}")
-        launch_count += 1
-        return out
 
-    return route("P3 smem_gather", x.device,
-                 lambda: smem_gather_plain(x, idx, t_reps, axis), launch)
+def occupancy(axis: int, rows: int = R) -> dict:
+    """Axis ``axis``'s kernel at ``rows`` rows on the current card:
+    registers per thread, shared memory per block (bytes), resident blocks
+    per SM."""
+    return _build.occupancy("probe_smem_gather", "smem_gather_occupancy",
+                            axis, rows)
 
 
 def probe_inputs(axis: int, device, rows: int = R):

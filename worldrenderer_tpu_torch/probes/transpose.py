@@ -52,15 +52,10 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
         y = torch.empty((v * n, r), dtype=torch.float32, device=x.device)
         if y.numel() == 0:
             return y
-        fn = _build.load("probe_transpose").transpose_launch
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
-            ctypes.c_longlong, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        with torch.cuda.device(x.device):
-            err = fn(x.data_ptr(), y.data_ptr(), v, r, n,
-                     torch.cuda.current_stream(x.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"transpose launch failed: CUDA error {err}")
+        _build.launch("probe_transpose", "transpose_launch",
+                      [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                      + [ctypes.c_longlong], x.device,
+                      x.data_ptr(), y.data_ptr(), v, r, n)
         launch_count += 1
         return y
 

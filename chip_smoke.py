@@ -53,7 +53,18 @@ Phases, one line each; any failure exits nonzero before the last line:
      texture call timed alone; [attr] workload 1 with a 512² checker:
      fused with tangents (K2), classic with antialias_attr (K4), auto_mip;
      [chunk] bench.py:614's config2 with view_chunk=8 against unchunked;
-     [ssaa] the headline at ssaa=2; [probes] the entry points of P1-P3.
+     [ssaa] the headline at ssaa=2; [probes] the entry points of P1-P3;
+  7. slice 7's paths, each with its launch counts read around it and its
+     wall seconds: [town] bench.py:395's town (tests/data/town.glb and its
+     camera path loaded onto the card, 8 frames at 384x576, the strip
+     atlas, backface_cull -1; K1) against the port's CPU render, and the
+     cull property of tests/test_town_fixture.py; [tiny] both raw
+     1M-triangle scenes of bench.py:298-367 through the sub-pixel sort path
+     (K1 beside it), their budgets and candidate caps, view 0 against the
+     CPU, the cap on against off and the path on against off bit for bit,
+     and vpu_pallas (K3) and fused_xla (K2) with the path on; [lod]
+     bench.py:867's LOD chain over the 1M heightfield (the host's meshproc,
+     built with g++ beside the kernels) and its selected level's render.
 The second-to-last line is a JSON record of every kernel (launches on the
 main paths, error against the plain version, times, bound); the last line
 is the device summary, printed only when every phase passed.
@@ -69,6 +80,7 @@ one card (k1_k4_readings, probe_readings).
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
 import subprocess
@@ -228,7 +240,7 @@ def k1_inputs_for(pt, gb, mesh, cam, size):
     pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
     cfg = pt.auto_fast_config(pos, mesh.t_pos_idx, (size, size))
     return gb._k1_inputs(pos, mesh.t_pos_idx, mesh.v_nrm, size, size, cfg,
-                         pos_world=mesh.v_pos, mvp=cam.mvp_mtx), cfg
+                         pos_world=mesh.v_pos, mvp=cam.mvp_mtx)[:2], cfg
 
 
 def synthetic_k1_inputs(device, c=128):
@@ -755,7 +767,8 @@ def tile_kernel_checks(pt, gb, pr, zc, rk, dev, card) -> dict:
     mesh, cam = sphere_scene(pt, dev)
     pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
     cfg = pt.DEFAULT_CONFIG
-    zin, zdims = gb._zattr_inputs(pos, mesh.t_pos_idx, mesh.v_nrm, 512, 512, cfg)
+    zin, zdims, _ = gb._zattr_inputs(pos, mesh.t_pos_idx, mesh.v_nrm, 512, 512,
+                                     cfg)
     kin = pr._zid_inputs(pos, mesh.t_pos_idx, 512, 512, cfg)[1]
     atlas = pr._zid_inputs(atlas_clip(mesh), mesh.t_tex_idx, 2048, 2048, cfg)[1]
     kdims = (cfg.tile_h, cfg.tile_w, cfg.chunk)
@@ -1033,7 +1046,7 @@ def flat_backends_phase(pt, gb, gc, zc, rk, dev, card, head_cfg) -> dict:
             raise AssertionError(f"rasterize_gbuffer with {backend} did not "
                                  f"run {kernel} alone: {counts}")
         launches[kernel] = counts[kernel]
-        inputs, dims = gb._zattr_inputs(pos, tri, nrm, 512, 512, cfg)
+        inputs, dims, _ = gb._zattr_inputs(pos, tri, nrm, 512, 512, cfg)
         err = bitwise_against_plain(
             kernel, getattr(zc, kernel)(*inputs, *dims),
             getattr(zc, f"{kernel}_plain")(*inputs, *dims))
@@ -1167,13 +1180,14 @@ def textured_kernel_inputs(pt, gb, dev):
     pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
     cfg = config4_cfg(pt, mesh, cam)
     k1 = gb._k1_inputs(pos, mesh.t_pos_idx, torch.cat([mesh.v_nrm, mesh.v_tex], -1),
-                       1024, 1024, cfg, pos_world=mesh.v_pos, mvp=cam.mvp_mtx)
+                       1024, 1024, cfg, pos_world=mesh.v_pos,
+                       mvp=cam.mvp_mtx)[:2]
     sph, scam = sphere_scene(pt, dev)
     sph = pt.with_normals(sph, compute_tangents=True)
     spos = pt.get_clip_space_position(sph.v_pos, scam.mvp_mtx)
     k2 = gb._zattr_inputs(spos, sph.t_pos_idx,
                           torch.cat([sph.v_nrm, sph.v_tang, sph.v_tex], -1),
-                          512, 512, pt.DEFAULT_CONFIG)
+                          512, 512, pt.DEFAULT_CONFIG)[:2]
     return k1, k2
 
 
@@ -1460,7 +1474,7 @@ def texture_phase(pt, gb, gc, zc, rk, dev, card) -> int:
         return gb._k1_inputs(pos, nm.t_pos_idx, v_attr, 1024, 1024, cfg,
                              pos_world=nm.v_pos, mvp=cam.mvp_mtx)
 
-    inputs, dims = prep()
+    inputs, dims, _ = prep()
     prep_ms = cuda_ms(prep, 5)
     k1_ms = cuda_ms(lambda: gc.gbuffer_tiles(*inputs, *dims), 20)
     ms, tex_ms = runs["none_ms"]
@@ -1590,6 +1604,421 @@ def ssaa_phase(pt, gc, zc, rk, dev, card) -> int:
     return k1
 
 
+# ---- Slice 7: real scenes and million-triangle meshes ------------------------
+
+DATA = Path(__file__).resolve().parent / "tests" / "data"
+
+
+def card_vs_cpu(out, ref, views, fields) -> tuple:
+    """A render on the card against the port's CPU render of ``views``:
+    (mask flips, foreground, {field: max abs error where both cover})."""
+    mask = out.mask[views].cpu()
+    both = mask & ref.mask
+    errs = {f: float((getattr(out, f)[views].cpu() - getattr(ref, f))[both]
+                     .abs().max()) for f in fields}
+    return int((mask != ref.mask).sum()), int(ref.mask.sum()), errs
+
+
+def log_profile(phase, what, fn) -> None:
+    """One traced call of ``fn``: wall ms, device-busy ms, idle share and
+    CUDA kernels per call, and the top kernels."""
+    wall, busy, n_kernels, top = profile_ms(fn)
+    if not n_kernels:
+        log(phase, f"{what}: device time not measured (no CUDA kernels in "
+            "the trace)")
+        return
+    log(phase, f"{what}: traced {wall:.3f} ms wall, device busy {busy:.3f} ms "
+        f"({100 * (1 - busy / wall):.1f}% idle), {n_kernels:.0f} CUDA kernels "
+        f"per call; top: " + "; ".join(
+            f"{name} {ms:.4f} ms x{count:.0f}" for name, ms, count in top[:3]))
+
+
+def k1_path_check(phase, what, gb, gc, *args, **kw) -> None:
+    """K1 against its plain version, bit for bit, on the inputs that a main
+    path's render gives it (``gb._k1_inputs(*args, **kw)`` from the phase's
+    own positions, triangles, attributes and config on the card)."""
+    inputs, dims, _ = gb._k1_inputs(*args, **kw)
+    err = k1_against_plain(gc, inputs, dims)
+    n_vals, tile_h, tile_w, n_ty, n_tx, _ = dims
+    log(phase, f"{what}: K1 on the render's inputs ({n_ty}x{n_tx} tiles of "
+        f"{tile_h}x{tile_w}, {n_vals} value planes, {int(inputs[3].sum())} "
+        f"live chunks) bitwise equal to the plain version (max abs err {err})")
+
+
+def town_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
+    """bench.py:371-420 bench_town: the committed town (tests/data/town.glb,
+    its camera path) loaded onto the card, 8 frames of the path at 384x576
+    with colour (the strip atlas, attr_background 0.7), depth and normals,
+    auto_fast_config over the fast config with backface_cull -1 (K1). The
+    load's seconds, the budgets, views/s and K1's launches per render, the
+    card against the port's CPU render, and the cull property of
+    tests/test_town_fixture.py:86-125 on the card, and K1 on the render's
+    inputs (576 = 4.5 tiles of 128: partial tiles) against its plain
+    version. Returns the launches per kernel."""
+    from worldrenderer_tpu_torch.render import _unify_cached
+    from worldrenderer_tpu_torch.scene import load_camera_from_json
+
+    h, w = 384, 576
+    t0 = time.perf_counter()
+    mesh = pt.load_mesh(str(DATA / "town.glb"), flip_uv=True, device=dev)
+    cam, near, far = load_camera_from_json(DATA / "town_camera_path.json",
+                                           h, w, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cam = cam[::100 // 8][:8]
+    log("town", f"load_mesh + load_camera_from_json onto the card "
+        f"{load_s:.3f} s: {mesh.num_faces} triangles, atlas "
+        f"{tuple(mesh.texture.shape)}, registered as k/255 "
+        f"{pt.is_registered_quantized_texture(mesh.texture)}, {len(cam)} "
+        f"frames, the path's median near / far {near} / {far}")
+    pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+    cfg = pt.auto_fast_config(pos, mesh.t_pos_idx, (h, w),
+                              base=pt.FAST_TPU_CONFIG._replace(backface_cull=-1))
+    stats = pt.binning_stats(pos, mesh.t_pos_idx, (h, w), cfg)
+    if not stats["ok"]:
+        raise AssertionError(f"town: binning budgets lossy: {stats}")
+    kw = dict(render_attr=True, render_depth=True, render_normal=True,
+              attr_background=0.7, raster_config=cfg)
+
+    def run():
+        return pt.render(mesh, cam, h, w, device=dev, **kw)
+
+    reset_counts(gc, zc, rk)
+    out = run()
+    launches = read_counts(gc, zc, rk)["gbuffer_tiles"]
+    if launches < 1:
+        raise AssertionError("town: render() did not launch K1")
+    ms = cuda_ms(run, 20)
+    log("town", f"budgets ok (live {stats['live_entries']}, max per tile "
+        f"{stats['max_per_tile']} of {stats['k_cap']}); render {ms:.4f} ms = "
+        f"{len(cam) / (ms / 1e3):.2f} views/s ({card}), K1 launches per render "
+        f"{launches}")
+    log_profile("town", "render", run)
+    # The render's own seam cut and normals, as render() builds them.
+    um = mesh
+    if mesh.v_tex.shape[0] != mesh.v_pos.shape[0]:
+        um = _unify_cached(mesh)
+    um = pt.with_normals(um)
+    v_nrm = um.v_nrm
+    if v_nrm.shape[0] != um.v_pos.shape[0]:
+        v_nrm = pt.compute_vertex_normals(um.v_pos, um.t_pos_idx)
+    k1_path_check("town", "8 frames", gb, gc,
+                  pt.get_clip_space_position(um.v_pos, cam.mvp_mtx),
+                  um.t_pos_idx, torch.cat([v_nrm, um.v_tex], -1), h, w, cfg,
+                  pos_world=um.v_pos, mvp=cam.mvp_mtx)
+
+    ref = pt.render(mesh.to("cpu"), cam.to("cpu"), h, w, device="cpu", **kw)
+    views = list(range(len(cam)))
+    mask_diff, fg, errs = card_vs_cpu(out, ref, views,
+                                      ("attr", "pos", "depth", "normal"))
+    g_gpu = pt.rasterize_gbuffer(pos, mesh.t_pos_idx, None, (h, w), cfg,
+                                 device=dev)
+    g_cpu = pt.rasterize_gbuffer(pos.cpu(), mesh.t_pos_idx.cpu(), None, (h, w),
+                                 cfg, device="cpu")
+    id_diff = int((g_gpu.tri_id.cpu() != g_cpu.tri_id).sum())
+    both = out.mask.cpu() & ref.mask
+    pos_bits = int((out.pos.cpu() != ref.pos)[both].any(-1).sum())
+    extent = float(ref.pos[ref.mask].abs().max())
+    log("town", f"vs the port on the CPU (8 frames): mask diff {mask_diff}, "
+        f"tri_id diff {id_diff} of {fg} foreground, max errors {errs}; "
+        f"positions differ at {pos_bits} of {int(both.sum())} pixels both "
+        f"cover (world extent {extent:.3f})")
+    if not (mask_diff <= 1e-4 * fg and id_diff <= 1e-4 * fg
+            and errs["attr"] < 1e-4 and errs["pos"] < 1e-4
+            and errs["depth"] < 1e-4 and errs["normal"] < 5e-4
+            and fg > 0.15 * len(cam) * h * w):
+        raise AssertionError("town: the card disagrees with the CPU")
+
+    outs = {}
+    for bf in (0, -1):
+        c = pt.auto_fast_config(pos, mesh.t_pos_idx, (h, w), backface_cull=bf)
+        outs[bf] = pt.rasterize_gbuffer(pos, mesh.t_pos_idx, None, (h, w), c,
+                                        device=dev)
+    a, b = outs[0], outs[-1]
+    both = a.mask & b.mask
+    cull = {"mask_diff": int((a.mask != b.mask).sum()),
+            "id_flips": int(((a.tri_id != b.tri_id) & both).sum()),
+            "foreground": int(both.sum())}
+    same = both & (a.tri_id == b.tri_id)
+    cull["z_max_diff"] = float((a.z - b.z).abs()[same].max())
+    log("town", f"backface_cull 0 vs -1 on the card: {cull}")
+    if (cull["mask_diff"] or cull["id_flips"] > max(16, cull["foreground"] // 2000)
+            or cull["z_max_diff"] >= 1e-5):
+        raise AssertionError(f"town: the cull property fails: {cull}")
+    return {"gbuffer_tiles": launches}
+
+
+def stress1m_scene(pt, dev, closed=False):
+    """bench.py:298-354: the 999,698-triangle heightfield in the headline's
+    orbit, or the closed 998,284-triangle UV sphere in workload 1's, 6
+    views, with normals."""
+    if closed:
+        verts, faces, _ = pt.uv_sphere_mesh(707, 708)
+        cam_kw = dict(elevation_deg=20.0, distance=2.7, fovy_deg=40.0)
+    else:
+        verts, faces = pt.make_grid_mesh(
+            708, height_fn=lambda x, y: 0.3 * np.sin(3 * x) * np.cos(3 * y))
+        cam_kw = dict(elevation_deg=35.0, distance=3.0, fovy_deg=50.0)
+    mesh = pt.with_normals(pt.mesh_from_arrays(verts, faces, device=dev))
+    cam = pt.get_camera(num_views=6, near=0.1, far=10.0, device=dev, **cam_kw)
+    return mesh, cam
+
+
+def mixed_tiny_scene(dev, n_big=200, n_tiny=30000, half=0.003, seed=0):
+    """A scene of the class of tests/test_rasterize.py:778: big triangles,
+    then sub-pixel ones (at 256², bbox under 0.8 px), each with its own
+    vertices and random depths; random attributes (V, 5)."""
+    rng = np.random.default_rng(seed)
+
+    def tris(n, hw):
+        centre = rng.uniform(-0.95, 0.95, (n, 2))
+        xy = centre[:, None, :] + rng.uniform(-hw, hw, (n, 3, 2))
+        return np.concatenate(
+            [xy, rng.uniform(0.2, 0.9, (n, 3, 1)), np.ones((n, 3, 1))], -1)
+
+    v = np.concatenate([tris(n_big, 0.3), tris(n_tiny, half)])
+    v = torch.tensor(v.reshape(1, -1, 4), dtype=torch.float32, device=dev)
+    tri = torch.arange(v.shape[1], device=dev).reshape(-1, 3)
+    attr = torch.tensor(rng.normal(size=(v.shape[1], 5)), dtype=torch.float32,
+                        device=dev)
+    return v, tri, attr
+
+
+def same_gbuffer_bits(a, b) -> bool:
+    return all(same_bits(getattr(a, f), getattr(b, f))
+               for f in ("mask", "tri_id", "z", "attr")
+               if getattr(a, f) is not None)
+
+
+def tiny_phase(pt, gb, pr, gc, zc, rk, dev, card) -> dict:
+    """bench.py:298-367: both raw 1M-triangle scenes (the heightfield; the
+    closed sphere with backface_cull -1), 6 views at 512², normals, the
+    fast config with bin_tiny_px 1.0 through auto_fast_config. For each:
+    the config, the budgets, the candidates against bin_tiny_cap, views/s
+    and K1's launches, the sort path's time alone, view 0 against the
+    port's CPU render, and the candidate cap on against off bit for bit.
+    Then the sort path against none, bit for bit, on a scene where both fit
+    (a mixed scene of 30,200 triangles at 256²), and vpu_pallas and
+    fused_xla on the heightfield with the path on (K3 and K2 once each, K1
+    never, each bitwise against its plain version). K1 on each scene's
+    render inputs against its plain version. Returns the launches."""
+    launches = {"gbuffer_tiles": 0, "zattr_tiles": 0, "zattr_tiles_vpu": 0}
+    kw = dict(render_attr=False, render_depth=False, render_normal=True)
+    hf = None
+    for name, closed in (("heightfield", False), ("sphere", True)):
+        mesh, cam = stress1m_scene(pt, dev, closed)
+        tri = mesh.t_pos_idx
+        pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+        base = pt.FAST_TPU_CONFIG._replace(bin_tiny_px=1.0,
+                                           backface_cull=-1 if closed else 0)
+        cfg = pt.auto_fast_config(pos, tri, (512, 512), base=base)
+        stats = pt.binning_stats(pos, tri, (512, 512), cfg)
+        if not stats["ok"]:
+            raise AssertionError(f"{name}: binning budgets lossy: {stats}")
+        log("tiny", f"{name} ({mesh.num_faces} triangles): auto_fast_config "
+            f"max_tris_per_tile {cfg.max_tris_per_tile}, bin_huge "
+            f"{cfg.bin_huge}, bin_med {cfg.bin_med}, bin_flat_cap_abs "
+            f"{cfg.bin_flat_cap_abs}, bin_small_cap {cfg.bin_small_cap}, "
+            f"bin_tiny_cap {cfg.bin_tiny_cap}, backface_cull "
+            f"{cfg.backface_cull}; candidates (bbox under 1 px) "
+            f"{stats['n_tiny_1px']}, covered {stats['n_tiny_cov']} of the cap "
+            f"{stats['tiny_cap_budget']}; binned entries "
+            f"{stats['live_entries']} of {stats['flat_cap']}, small tier "
+            f"{stats['n_small_tris']} of {stats['small_cap_budget']}")
+
+        def run(mesh=mesh, cam=cam, cfg=cfg):
+            return pt.render(mesh, cam, 512, 512, raster_config=cfg,
+                             device=dev, **kw)
+
+        reset_counts(gc, zc, rk)
+        out = run()
+        n = read_counts(gc, zc, rk)["gbuffer_tiles"]
+        if n < 1:
+            raise AssertionError(f"{name}: render() did not launch K1")
+        launches["gbuffer_tiles"] += n
+        ms = cuda_ms(run, 20)
+        setup = pr._triangle_setup_t(pr._clip_corners(pos, tri), 512, 512,
+                                     cfg.backface_cull)
+        sort_ms = cuda_ms(lambda: gb._tiny_for(setup, None, 512, 512, cfg), 20)
+        log("tiny", f"{name}: render {ms:.4f} ms = {len(cam) / (ms / 1e3):.2f} "
+            f"views/s ({card}), K1 launches per render {n}; the sort path "
+            f"alone {sort_ms:.4f} ms ({100 * sort_ms / ms:.1f}% of the render)")
+        log_profile("tiny", f"{name} render", run)
+        k1_path_check("tiny", name, gb, gc, pos, tri, mesh.v_nrm, 512, 512, cfg,
+                      pos_world=mesh.v_pos, mvp=cam.mvp_mtx)
+
+        ref = pt.render(mesh.to("cpu"), cam[0].to("cpu"), 512, 512,
+                        raster_config=cfg, device="cpu", **kw)
+        mask_diff, fg, errs = card_vs_cpu(out, ref, [0], ("pos", "normal"))
+        g_gpu = pt.rasterize_gbuffer(pos, tri, None, (512, 512), cfg, device=dev)
+        g_cpu = pt.rasterize_gbuffer(pos[:1].cpu(), tri.cpu(), None, (512, 512),
+                                     cfg, device="cpu")
+        id_diff = int((g_gpu.tri_id[:1].cpu() != g_cpu.tri_id).sum())
+        uncapped = pt.rasterize_gbuffer(pos, tri, None, (512, 512),
+                                        cfg._replace(bin_tiny_cap=0), device=dev)
+        cap_same = same_gbuffer_bits(g_gpu, uncapped)
+        log("tiny", f"{name}: view 0 vs the port on the CPU: mask diff "
+            f"{mask_diff}, tri_id diff {id_diff} of {fg} foreground, max "
+            f"errors {errs}; bin_tiny_cap on vs off bitwise equal {cap_same}")
+        if not (mask_diff <= 1e-4 * fg and id_diff <= 1e-4 * fg
+                and errs["pos"] < 1e-4 and errs["normal"] < 5e-4
+                and fg > 50_000 and cap_same):
+            raise AssertionError(f"{name}: the card disagrees with the CPU or "
+                                 "the capped sort path with the uncapped one")
+        if not closed:
+            hf = (pos, tri, mesh.v_nrm, cfg)
+        del mesh, cam, out, ref, g_gpu, g_cpu, uncapped, setup
+
+    v, tri, attr = mixed_tiny_scene(dev)
+    exact = pt.RasterizerConfig(backend="fused_pallas")
+    reset_counts(gc, zc, rk)
+    off = pt.rasterize_gbuffer(v, tri, attr, (256, 256), exact, device=dev)
+    on_cfg = exact._replace(bin_tiny_px=1.0)
+    st = pt.binning_stats(v, tri, (256, 256), on_cfg)
+    on = pt.rasterize_gbuffer(v, tri, attr, (256, 256), on_cfg, device=dev)
+    launches["gbuffer_tiles"] += read_counts(gc, zc, rk)["gbuffer_tiles"]
+    equal = same_gbuffer_bits(on, off)
+    log("tiny", f"mixed scene ({tri.shape[0]} triangles, 256², 5 attributes): "
+        f"the sort path ({st['n_tiny_1px']} candidates, {st['n_tiny_cov']} "
+        f"covered) against none, bitwise equal {equal}; foreground "
+        f"{int(on.mask.sum())}")
+    if not (equal and st["ok"] and st["n_tiny_cov"] > 1000):
+        raise AssertionError("the sort path changes bits against none")
+
+    pos, tri, nrm, cfg = hf
+    for backend, kernel in (("vpu_pallas", "zattr_tiles_vpu"),
+                            ("fused_xla", "zattr_tiles")):
+        bcfg = cfg._replace(backend=backend)
+
+        def run(bcfg=bcfg):
+            return pt.rasterize_gbuffer(pos, tri, nrm, (512, 512), bcfg,
+                                        device=dev)
+
+        reset_counts(gc, zc, rk)
+        run()
+        counts = read_counts(gc, zc, rk)
+        if counts[kernel] != 1 or counts["gbuffer_tiles"]:
+            raise AssertionError(f"heightfield with {backend}: {counts}")
+        launches[kernel] += counts[kernel]
+        inputs, dims, _ = gb._zattr_inputs(pos, tri, nrm, 512, 512, bcfg)
+        err = bitwise_against_plain(
+            kernel, getattr(zc, kernel)(*inputs, *dims),
+            getattr(zc, f"{kernel}_plain")(*inputs, *dims))
+        ms = cuda_ms(run, 5)
+        log("tiny", f"heightfield with {backend}: launches {counts}; {kernel} "
+            f"on the flat rows ({int(inputs[0].shape[0])} tiles, "
+            f"{int(inputs[1].sum())} entries) bitwise equal to the plain "
+            f"version (max abs err {err}); {ms:.4f} ms = "
+            f"{len(pos) / (ms / 1e3):.2f} views/s ({card})")
+        del inputs
+    return launches
+
+
+def digest(*arrays) -> str:
+    """A short digest of host arrays' bytes."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:12]
+
+
+def host_fma() -> str:
+    """g++'s version, and whether its -march=native targets FMA on this host
+    (and so contracts a*b + c in the mesh processor)."""
+    macros = subprocess.run(["g++", "-march=native", "-dM", "-E", "-x", "c++",
+                             "/dev/null"], capture_output=True, text=True,
+                            check=True).stdout
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    return f"{gxx}, -march=native FMA {'on' if '__FMA__' in macros else 'off'}"
+
+
+# Level 1 of the heightfield's chain (999,698 -> 62,481 faces) by the mesh
+# processor built without contraction: the same on every x86-64 host (its
+# decimation does IEEE adds, multiplies, divides and square roots only),
+# for the input of this digest.
+LOD_INPUT = "12435db617a5"
+LOD_L1_NO_CONTRACT = (62481, "b1e6104dac7b")
+
+
+def lod_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
+    """bench.py:867-891 bench_stress1m: build_lod_chain(factors=(1, 16, 64,
+    256)) over the 999,698-triangle heightfield (host decimation by the
+    port's meshproc), select(target_px_per_tri=2.0) for the 6 views at
+    512², and the selected level's render through auto_fast_config (K1):
+    the build's seconds, the faces per level, views/s, and the level's
+    render against the port's CPU render (views 0 and 3), K1 on its inputs
+    against its plain version. The chain is the host's: a digest of every
+    level, level 1 against the port's library called again on the same
+    input in this run (bit for bit), and level 1 from the library built
+    without FMA contraction against its fixed result. Returns the launches
+    per kernel."""
+    from worldrenderer_tpu_torch import meshproc
+
+    mesh, cam = stress1m_scene(pt, dev)
+    t0 = time.perf_counter()
+    chain = pt.build_lod_chain(mesh, factors=(1, 16, 64, 256), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    host = [a.cpu().numpy() for a in (mesh.v_pos, mesh.t_pos_idx)]
+    v_in, f_in = host[0].astype(np.float64), host[1].astype(np.int64)
+    levels = [digest(m.v_pos.cpu().numpy(), m.t_pos_idx.cpu().numpy())
+              for m in chain.levels]
+    target = len(f_in) // chain.factors[1]
+    v1, f1 = meshproc.decimate(v_in, f_in, target)
+    again = (np.array_equal(f1, chain.levels[1].t_pos_idx.cpu().numpy())
+             and same_bits(torch.from_numpy(v1.astype(np.float32)),
+                           chain.levels[1].v_pos.cpu()))
+    v1n, f1n = meshproc.decimate(v_in, f_in, target,
+                                 lib=meshproc._get_lib(meshproc.NO_CONTRACT))
+    l1n = (len(f1n), digest(v1n, f1n))
+    log("lod", f"{host_fma()}; input {digest(v_in, f_in)}; level "
+        f"digests {levels}; level 1 by the library again on the same input "
+        f"bitwise equal {again} ({len(f1)} faces, {digest(v1, f1)}); without "
+        f"contraction {l1n[0]} faces, {l1n[1]} (fixed: {LOD_L1_NO_CONTRACT} "
+        f"for input {LOD_INPUT})")
+    if not again or (digest(v_in, f_in) == LOD_INPUT
+                     and l1n != LOD_L1_NO_CONTRACT):
+        raise AssertionError("lod: the mesh processor is not reproducible")
+    level = chain.select(cam, 512, 512, target_px_per_tri=2.0)
+    lod = pt.with_normals(chain.mesh_for(cam, 512, 512, device=dev,
+                                         target_px_per_tri=2.0))
+    pos = pt.get_clip_space_position(lod.v_pos, cam.mvp_mtx)
+    cfg = pt.auto_fast_config(pos, lod.t_pos_idx, (512, 512))
+    log("lod", f"build_lod_chain {build_s:.3f} s on the host: faces per level "
+        f"{[int(m.num_faces) for m in chain.levels]} (factors "
+        f"{chain.factors}); selected level {level}, {lod.num_faces} triangles, "
+        f"bin_tiny_px {cfg.bin_tiny_px}, bin_med {cfg.bin_med}, bin_huge "
+        f"{cfg.bin_huge}, max_tris_per_tile {cfg.max_tris_per_tile}")
+    kw = dict(render_attr=False, render_depth=False, render_normal=True,
+              raster_config=cfg)
+
+    def run():
+        return pt.render(lod, cam, 512, 512, device=dev, **kw)
+
+    reset_counts(gc, zc, rk)
+    out = run()
+    launches = read_counts(gc, zc, rk)["gbuffer_tiles"]
+    if launches < 1:
+        raise AssertionError("lod: render() did not launch K1")
+    ms = cuda_ms(run, 20)
+    log_profile("lod", f"level {level} render", run)
+    k1_path_check("lod", f"level {level}", gb, gc, pos, lod.t_pos_idx,
+                  lod.v_nrm, 512, 512, cfg, pos_world=lod.v_pos,
+                  mvp=cam.mvp_mtx)
+    ref = pt.render(lod.to("cpu"), cam[[0, 3]].to("cpu"), 512, 512,
+                    device="cpu", **kw)
+    mask_diff, fg, errs = card_vs_cpu(out, ref, [0, 3], ("pos", "normal"))
+    log("lod", f"level {level}: render {ms:.4f} ms = "
+        f"{len(cam) / (ms / 1e3):.2f} views/s ({card}), K1 launches per render "
+        f"{launches}; vs the port on the CPU (views 0, 3): mask diff "
+        f"{mask_diff} of {fg}, max errors {errs}")
+    if not (level > 0 and mask_diff <= 1e-4 * fg and errs["pos"] < 1e-4
+            and errs["normal"] < 5e-4 and fg > 100_000):
+        raise AssertionError("lod: the card disagrees with the CPU")
+    return {"gbuffer_tiles": launches}
+
+
 def k1_k4_readings(port_root: Path) -> int:
     """``python3 chip_smoke.py --k1-k4 ROOT``: only the tile kernels' times
     (K1's ``[k1] balance`` on the headline and config4, K3's ``[k3]
@@ -1626,7 +2055,8 @@ def k1_k4_readings(port_root: Path) -> int:
     sph, scam = sphere_scene(pt, dev)
     spos = pt.get_clip_space_position(sph.v_pos, scam.mvp_mtx)
     cfg = pt.DEFAULT_CONFIG
-    zin, zdims = gb._zattr_inputs(spos, sph.t_pos_idx, sph.v_nrm, 512, 512, cfg)
+    zin, zdims, _ = gb._zattr_inputs(spos, sph.t_pos_idx, sph.v_nrm, 512, 512,
+                                     cfg)
     kin = pr._zid_inputs(spos, sph.t_pos_idx, 512, 512, cfg)[1]
     atlas = pr._zid_inputs(atlas_clip(sph), sph.t_tex_idx, 2048, 2048, cfg)[1]
     kdims = (cfg.tile_h, cfg.tile_w, cfg.chunk)
@@ -1702,6 +2132,7 @@ def main() -> int:
     # cuda_ms, the CUDA-event timer every phase uses, is the probes' own.
     global cuda_ms
     import worldrenderer_tpu_torch as pt
+    from worldrenderer_tpu_torch import meshproc
     from worldrenderer_tpu_torch.ops import _build
     from worldrenderer_tpu_torch.ops import gbuffer as gb
     from worldrenderer_tpu_torch.ops import gbuffer_cuda as gc
@@ -1724,8 +2155,18 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = ["gbuffer_tiles", "raster_zid_tiles", "zattr_tiles",
             "probe_chunk_stream", "probe_transpose", "probe_smem_gather"]
+    # The host's meshproc library (g++), and the same without FMA
+    # contraction for [lod], build beside the kernels (nvcc).
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    meshproc_builds = [pool.submit(meshproc._get_lib, flags) for flags in
+                       (meshproc.GXX_FLAGS, meshproc.NO_CONTRACT)]
     logs = _build.build(libs)  # one nvcc per source, all started together
     log("build", f"{', '.join(libs)} built in {time.perf_counter() - t0:.2f} s")
+    for build in meshproc_builds:
+        build.result()  # raises if g++ failed
+    pool.shutdown()
+    log("build", f"meshproc (g++, {meshproc._target().name}) ready at "
+        f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
         for line in logs[lib].splitlines():
             if "registers" in line or "spill" in line:
@@ -1744,7 +2185,7 @@ def main() -> int:
     tie_k1, tie_dims, tie_winners = synthetic_k1_tie_inputs(dev)
     # Workload 3's K1 inputs: classic rasterize's uv mode at DEFAULT_CONFIG
     # (tiles of 32x128, so the 16-pixels-per-thread instance).
-    uv_k1, uv_dims = gb._k1_inputs(
+    uv_k1, uv_dims, _ = gb._k1_inputs(
         pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx), mesh.t_pos_idx,
         None, 512, 512, pt.DEFAULT_CONFIG, uv_mode=True)
     max_err = 0.0
@@ -1890,6 +2331,18 @@ def main() -> int:
     launches += ssaa_phase(pt, gc, zc, rk, dev, card)
     for name, n in probes_phase().items():
         probe_entries[name]["launches"] = n
+    # Slice 7's paths, the same way, each with its wall seconds.
+    for phase, call in (
+            ("town", lambda: town_phase(pt, gb, gc, zc, rk, dev, card)),
+            ("tiny", lambda: tiny_phase(pt, gb, pr, gc, zc, rk, dev, card)),
+            ("lod", lambda: lod_phase(pt, gb, gc, zc, rk, dev, card))):
+        t_phase = time.perf_counter()
+        for name, n in call().items():
+            if name == "gbuffer_tiles":
+                launches += n
+            else:
+                tile_launches[name] += n
+        log(phase, f"phase ran {time.perf_counter() - t_phase:.1f} s")
     for name, entry in tile_entries.items():
         entry["launches"] = tile_launches[name]
 

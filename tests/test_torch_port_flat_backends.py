@@ -205,7 +205,7 @@ def _rows():
 
     with _op_by_op():
         jco, jcnt = jax.vmap(rows)(jnp.asarray(pos))
-    (co, cnt), dims = pg._zattr_inputs(
+    (co, cnt), dims, _ = pg._zattr_inputs(
         *(torch.from_numpy(a.copy()) for a in (pos, faces, uv)), SIZE, SIZE,
         pt.config_from_dict(cfg._asdict()))
     return (_np(jco).reshape(co.shape), _np(jcnt).reshape(-1)), (co, cnt), dims

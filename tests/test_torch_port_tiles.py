@@ -208,8 +208,8 @@ def _tile_blocks(name, n_attr):
     tpos, tfaces = torch.from_numpy(pos), torch.from_numpy(faces)
     pcfg = pt.config_from_dict(cfg._asdict())
     _, (p4, ids, counts), _ = pr._zid_inputs(tpos, tfaces, h, w, pcfg)
-    (p_rows, counts2), _ = pg._zattr_inputs(tpos, tfaces, torch.from_numpy(attr),
-                                            h, w, pcfg)
+    (p_rows, counts2), _, _ = pg._zattr_inputs(
+        tpos, tfaces, torch.from_numpy(attr), h, w, pcfg)
     assert torch.equal(counts, counts2)
     ref = (np.concatenate(j4), np.concatenate(jr_rows), ref_ids.reshape(-1, k),
            ref_counts.reshape(-1))

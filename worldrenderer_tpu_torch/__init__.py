@@ -2,7 +2,9 @@
 
 Same public API and the same ``RasterizerConfig`` as the JAX package, so
 one config drives both. Entry points run on the card (``cuda``) unless the
-caller passes ``device="cpu"``; the rasterizer's tile passes are
+caller passes ``device="cpu"``; host IO (``load_mesh``, ``scene``) and
+the LOD chain's decimation (``meshproc``) run on the host and move their
+results there. The rasterizer's tile passes are
 hand-written CUDA kernels for Hopper (``csrc/``) whose plain PyTorch
 versions run on the CPU; so are the measurement probes of ``probes/``.
 """
@@ -19,13 +21,17 @@ from .camera import (
     rigid_inverse,
 )
 from .convert import camera_from_arrays, config_from_dict, mesh_from_arrays
+from .lod import LODChain, build_lod_chain, select_lod_level
 from .mesh import (
     TexturedMesh,
     compute_vertex_normals,
     compute_vertex_tangents,
     icosphere,
     is_registered_quantized_texture,
+    is_watertight,
+    load_mesh,
     make_grid_mesh,
+    merge_duplicate_vertices,
     mesh_use_texture,
     register_quantized_texture,
     unify_mesh_uv,
@@ -63,6 +69,8 @@ __all__ = [
     "icosphere", "is_registered_quantized_texture", "make_grid_mesh",
     "mesh_use_texture", "register_quantized_texture", "unify_mesh_uv",
     "uv_sphere_mesh", "with_normals",
+    "load_mesh", "merge_duplicate_vertices", "is_watertight",
+    "LODChain", "build_lod_chain", "select_lod_level",
     "antialias", "GBufferOutput", "rasterize_gbuffer", "interpolate",
     "rasterize", "rasterize_db", "texture", "texture_construct_mip",
     "DEFAULT_CONFIG", "FAST_TPU_CONFIG", "RasterizerConfig",

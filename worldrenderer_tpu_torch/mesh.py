@@ -1,6 +1,7 @@
 """TexturedMesh, vertex normals and tangents, the split-UV seam cut, the
-quantized-texture registry and procedural meshes (PyTorch counterpart of
-``worldrenderer_tpu/mesh.py``; host mesh IO comes in a later slice)."""
+quantized-texture registry, host mesh IO (``load_mesh``: GLB / glTF, OBJ,
+PLY, NPZ) and procedural meshes (PyTorch counterpart of
+``worldrenderer_tpu/mesh.py``)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ._device import DeviceLike
+from ._device import DeviceLike, resolve_device
 from .transforms import dot, fma_f32
 
 __all__ = [
@@ -18,6 +19,9 @@ __all__ = [
     "compute_vertex_normals",
     "compute_vertex_tangents",
     "with_normals",
+    "load_mesh",
+    "merge_duplicate_vertices",
+    "is_watertight",
     "mesh_use_texture",
     "unify_mesh_uv",
     "register_quantized_texture",
@@ -262,6 +266,265 @@ def register_quantized_texture(arr: torch.Tensor) -> None:
 
 def is_registered_quantized_texture(arr) -> bool:
     return _QUANT_TEX_CACHE.get([arr]) is not None
+
+
+# ---------------------------------------------------------------------------
+# Host mesh IO (numpy): files are parsed and converted on the host, then the
+# tensors move to the device, so a loaded mesh has the same bits everywhere.
+# ---------------------------------------------------------------------------
+
+
+def merge_duplicate_vertices(
+    vertices: np.ndarray, faces: np.ndarray, decimals: int = 8
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Merge positionally identical vertices (rounded to ``decimals``) into
+    the stitched topology used for smooth normals. numpy in, numpy out."""
+    key = np.round(np.asarray(vertices, np.float64), decimals)
+    _, first_idx, inverse = np.unique(
+        key, axis=0, return_index=True, return_inverse=True
+    )
+    merged_vertices = np.asarray(vertices)[first_idx]
+    merged_faces = inverse.reshape(-1)[np.asarray(faces)]
+    return merged_vertices, merged_faces
+
+
+def is_watertight(faces, n_vertices: Optional[int] = None) -> bool:
+    """True when a triangle topology is closed, manifold and consistently
+    wound: every undirected edge is shared by exactly two faces that
+    traverse it in opposite directions. For such a mesh seen from outside,
+    every back face is hidden by a nearer front face, so
+    ``RasterizerConfig.backface_cull`` changes no pixel. ``faces`` (T, 3)
+    array or tensor (read on the host)."""
+    if isinstance(faces, torch.Tensor):
+        faces = _host(faces)
+    f = np.asarray(faces)
+    if f.size == 0:
+        return False
+    # A face with a repeated vertex makes a self-loop edge (a -> a), its
+    # own reverse, which would fool the pairing test below.
+    if (
+        (f[:, 0] == f[:, 1]) | (f[:, 1] == f[:, 2]) | (f[:, 0] == f[:, 2])
+    ).any():
+        return False
+    a = f
+    b = f[:, [1, 2, 0]]
+    n = int(n_vertices) if n_vertices is not None else int(f.max()) + 1
+    d = (a.astype(np.int64) * n + b.astype(np.int64)).reshape(-1)
+    # Closed, consistently wound 2-manifold <=> each directed edge occurs
+    # exactly once and so does its reverse.
+    if len(np.unique(d)) != d.size:
+        return False
+    rev = (b.astype(np.int64) * n + a.astype(np.int64)).reshape(-1)
+    return bool(np.isin(d, rev).all())
+
+
+def _load_obj(path: str):
+    """Minimal OBJ parser: v / vt / vn / f records, polygons triangulated as
+    fans. Returns (vertices f64, faces i64, uv or None, normals or None),
+    one vertex per unique (v, vt, vn) corner triple (the unstitched layout
+    GLB files use)."""
+    positions, texcoords, normals = [], [], []
+    corner_map = {}
+    out_pos, out_uv, out_nrm, faces = [], [], [], []
+
+    def corner(spec: str) -> int:
+        if spec in corner_map:
+            return corner_map[spec]
+        parts = (spec.split("/") + ["", ""])[:3]
+        vi = int(parts[0])
+        vi = vi - 1 if vi > 0 else len(positions) + vi
+        out_pos.append(positions[vi])
+        if parts[1]:
+            ti = int(parts[1])
+            out_uv.append(texcoords[ti - 1 if ti > 0 else len(texcoords) + ti])
+        if parts[2]:
+            ni = int(parts[2])
+            out_nrm.append(normals[ni - 1 if ni > 0 else len(normals) + ni])
+        corner_map[spec] = len(out_pos) - 1
+        return corner_map[spec]
+
+    with open(path) as f:
+        for line in f:
+            t = line.split()
+            if not t:
+                continue
+            if t[0] == "v":
+                positions.append([float(x) for x in t[1:4]])
+            elif t[0] == "vt":
+                texcoords.append([float(x) for x in t[1:3]])
+            elif t[0] == "vn":
+                normals.append([float(x) for x in t[1:4]])
+            elif t[0] == "f":
+                ids = [corner(s) for s in t[1:]]
+                for k in range(1, len(ids) - 1):
+                    faces.append([ids[0], ids[k], ids[k + 1]])
+
+    verts = np.asarray(out_pos, np.float64)
+    uv = np.asarray(out_uv, np.float64) if len(out_uv) == len(out_pos) else None
+    nrm = np.asarray(out_nrm, np.float64) if len(out_nrm) == len(out_pos) else None
+    return verts, np.asarray(faces, np.int64), uv, nrm
+
+
+_DIR2VEC = {
+    "+x": np.array([1, 0, 0]),
+    "+y": np.array([0, 1, 0]),
+    "+z": np.array([0, 0, 1]),
+    "-x": np.array([-1, 0, 0]),
+    "-y": np.array([0, -1, 0]),
+    "-z": np.array([0, 0, -1]),
+}
+
+
+def load_mesh(
+    mesh_path: str,
+    rescale: bool = False,
+    move_to_center: bool = False,
+    scale: float = 0.5,
+    flip_uv: bool = True,
+    merge_vertices: bool = True,
+    default_uv_size: Optional[int] = None,
+    shape_init_mesh_up: str = "+y",
+    shape_init_mesh_front: str = "+x",
+    front_x_to_y: bool = False,
+    return_transform: bool = False,
+    device: DeviceLike = None,
+):
+    """Load a mesh from GLB / glTF-JSON / OBJ / PLY / NPZ into a
+    TexturedMesh on ``device`` (the card unless ``device="cpu"``).
+
+    The file is parsed and converted to float32 / int64 on the host:
+    scene concatenation (a multi-material GLB becomes one strip-atlas
+    texture), recentring and rescaling, the up / front change of basis,
+    the UV V-flip, the baseColor texture, and the stitched topology for
+    smooth normals (the file's normals, else merged duplicate vertices).
+    A texture decoded from an image file is k/255 by construction; checked
+    on the host, it is registered with :func:`register_quantized_texture`
+    so ``render``'s pack auto-detection never reads it back from the card.
+    ``return_transform``: also return the centring offset and the scale
+    divisor (None where not applied)."""
+    dev = resolve_device(device)
+    vertex_normals = None
+    visual_uv = None
+    tex_img = None
+    can_merge = False
+    if mesh_path.endswith(".npz"):
+        data = np.load(mesh_path)
+        vertices = np.asarray(data["vertices"], np.float64)
+        faces = np.asarray(data["faces"], np.int64)
+        visual_uv = np.asarray(data["uv"], np.float64) if "uv" in data else None
+        merge_vertices = False
+    elif mesh_path.endswith((".glb", ".gltf")):
+        from .scene.gltf import load_glb
+
+        parsed = load_glb(mesh_path)
+        vertices = parsed["vertices"]
+        faces = parsed["faces"]
+        visual_uv = parsed["uv"]
+        if parsed["normals"] is not None:
+            vertex_normals = np.asarray(parsed["normals"], np.float64)
+        if parsed["texture"] is not None and default_uv_size is None:
+            tex_img = parsed["texture"][..., :3]
+        can_merge = True
+    elif mesh_path.endswith(".obj"):
+        vertices, faces, visual_uv, vertex_normals = _load_obj(mesh_path)
+        can_merge = True
+    elif mesh_path.endswith(".ply"):
+        from .scene.ply import load_ply
+
+        parsed = load_ply(mesh_path)
+        vertices = parsed["vertices"]
+        faces = parsed["faces"]
+        visual_uv = parsed["uv"]
+        if parsed["normals"] is not None:
+            vertex_normals = np.asarray(parsed["normals"], np.float64)
+        can_merge = True
+    else:
+        raise ValueError(f"Unsupported mesh format: {mesh_path}")
+
+    transform_offset = None
+    if move_to_center:
+        transform_offset = vertices.mean(0)
+        vertices = vertices - transform_offset
+
+    transform_scale = None
+    if rescale:
+        max_scale = np.abs(vertices).max()
+        vertices = vertices / max_scale * scale
+        transform_scale = max_scale / scale
+
+    if shape_init_mesh_up not in _DIR2VEC or shape_init_mesh_front not in _DIR2VEC:
+        raise ValueError(f"up/front must be one of {list(_DIR2VEC)}")
+    if shape_init_mesh_up[1] == shape_init_mesh_front[1]:
+        raise ValueError("up and front axes must be orthogonal")
+    z_ = _DIR2VEC[shape_init_mesh_up]
+    x_ = _DIR2VEC[shape_init_mesh_front]
+    y_ = np.cross(z_, x_)
+    std2mesh = np.stack([x_, y_, z_], axis=0).T
+    mesh2std = np.linalg.inv(std2mesh)
+    vertices = (mesh2std @ vertices.T).T
+    if vertex_normals is not None:
+        vertex_normals = (mesh2std @ vertex_normals.T).T
+    if front_x_to_y:
+        x = vertices[:, 1].copy()
+        y = -vertices[:, 0].copy()
+        vertices[:, 0], vertices[:, 1] = x, y
+        if vertex_normals is not None:
+            vx = vertex_normals[:, 1].copy()
+            vy = -vertex_normals[:, 0].copy()
+            vertex_normals[:, 0], vertex_normals[:, 1] = vx, vy
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    def i64(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+
+    v_pos = f32(vertices)
+    t_pos_idx = i64(faces)
+
+    v_tex = t_tex_idx = texture = None
+    if visual_uv is not None:
+        uv = visual_uv.astype(np.float32)
+        if flip_uv:
+            uv[:, 1] = 1.0 - uv[:, 1]
+        v_tex = f32(uv)
+        t_tex_idx = t_pos_idx
+        if tex_img is not None:
+            texture = f32(tex_img)
+            # Image-file textures are k/255 by construction; checked here on
+            # the host copy before the tensor is registered.
+            a = np.asarray(tex_img, np.float32)
+            if a.size and a.min() >= 0.0 and a.max() <= 1.0:
+                r = a * 255.0
+                if np.abs(r - np.round(r)).max() <= 1e-4:
+                    register_quantized_texture(texture)
+        else:
+            if default_uv_size is None:
+                raise ValueError("a mesh without a texture needs default_uv_size")
+            texture = torch.zeros((default_uv_size, default_uv_size, 3),
+                                  dtype=torch.float32, device=dev)
+
+    mesh = TexturedMesh(
+        v_pos=v_pos, t_pos_idx=t_pos_idx, v_tex=v_tex, t_tex_idx=t_tex_idx,
+        texture=texture,
+    )
+
+    if vertex_normals is not None:
+        mesh = mesh._replace(
+            v_nrm=f32(vertex_normals / np.maximum(
+                np.linalg.norm(vertex_normals, axis=-1, keepdims=True), 1e-12)),
+            stitched_v_pos=v_pos,
+            stitched_t_pos_idx=t_pos_idx,
+        )
+    elif merge_vertices and can_merge:
+        sv, sf = merge_duplicate_vertices(vertices, faces)
+        mesh = mesh._replace(stitched_v_pos=f32(sv), stitched_t_pos_idx=i64(sf))
+    else:
+        mesh = mesh._replace(stitched_v_pos=v_pos, stitched_t_pos_idx=t_pos_idx)
+
+    if return_transform:
+        return mesh, transform_offset, transform_scale
+    return mesh
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,11 @@ shared denominator are all plane evaluations. Two paths:
 This is the JAX package's routing: its ``_gbuffer_core`` takes the DMA
 path for ``fused_pallas`` alone, and its per-tile path evaluates
 ``fused_xla`` with ``_zattr_tile_xla``, whose contract is K2's.
+
+With ``bin_tiny_px`` > 0, both paths at scale leave the sub-pixel
+triangles out of the binning and rasterize them by sorting instead
+(:func:`_tiny_images`, torch ops as the JAX package's are XLA sorts), then
+merge the two images by nearest z and least id (:func:`_merge_zidvals`).
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .._device import DeviceLike, resolve_device
+from .._device import _I32_MAX, DeviceLike, resolve_device, to_int32_sat
 from ..transforms import mvp_columns
 from .gbuffer_cuda import BACKGROUND_ID, gbuffer_tiles
 from .rasterize import (
@@ -38,12 +43,14 @@ from .rasterize import (
     _check_ported,
     _classic_layout,
     _clip_corners,
+    _check_tiny_px,
     _CULL_MARGIN,
     _detile,
     _gather_tile_rows,
     _gather_tile_rows_flat,
     _K1_BACKENDS,
     _tile_origins,
+    _tiny_mask,
     _triangle_setup_t,
     _TriSetup,
     _TriSetupT,
@@ -106,6 +113,168 @@ def _attr_planes_t(setup: _TriSetupT, a3: torch.Tensor) -> torch.Tensor:
     )  # (B, 3coef, T)
     rows = torch.cat([num.reshape(bsz, n_attr * 3, t_total), den], dim=1)
     return torch.cat([rows, rows.new_zeros(bsz, rows.shape[1], 1)], dim=2)
+
+
+# ---- The sub-pixel sort path (RasterizerConfig.bin_tiny_px) -----------------
+# int32's largest value is its sentinel z bits and triangle id.
+
+
+def _z_sort_bits(z: torch.Tensor) -> torch.Tensor:
+    """Order-preserving map of float32 bits to int32 (signed compare):
+    -0.0 maps below +0.0. Applied twice it restores the bits."""
+    b = z.contiguous().view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)  # >> on int32 is arithmetic
+
+
+def _z_from_sort_bits(zb: torch.Tensor) -> torch.Tensor:
+    """The float32 z of :func:`_z_sort_bits`' int32 value."""
+    zb = zb.to(torch.int32).contiguous()
+    return (zb ^ ((zb >> 31) & 0x7FFFFFFF)).view(torch.float32)
+
+
+def _tiny_candidates(rows12, bbox4, tiny, height, width, tile_h, tile_w):
+    """Each tiny triangle's one pixel-centre candidate. rows12 (B, 12, T+1)
+    setup planes, bbox4 (B, 4, T+1), tiny (B, T) the triangles this path
+    owns. Returns pix (B, T) int32, the row-major pixel (H*W where the
+    candidate misses, lies off screen or fails the edge or depth test),
+    and z (B, T), its depth (meaningless where pix is H*W). One definition
+    of a covered candidate for the path and for binning_stats' guard.
+
+    A bbox under 1 px per axis holds at most one pixel centre per axis:
+    the first centre at or above the bbox minimum. The planes are
+    evaluated as the tile kernels evaluate them, rebased to the pixel's
+    tile origin, in the order ``a*lx + b*ly + (c + a*ox + b*oy)``."""
+    hw = height * width
+    xmin, xmax, ymin, ymax = (bbox4[:, k, :-1] for k in range(4))
+    pxf = torch.ceil(xmin - 0.5) + 0.5
+    pyf = torch.ceil(ymin - 0.5) + 0.5
+    ix = to_int32_sat(pxf - 0.5)
+    iy = to_int32_sat(pyf - 0.5)
+    inb = ((pxf <= xmax) & (pyf <= ymax) & (ix >= 0) & (ix < width)
+           & (iy >= 0) & (iy < height))
+    oxf = (torch.div(ix, tile_w, rounding_mode="floor") * tile_w).to(torch.float32)
+    oyf = (torch.div(iy, tile_h, rounding_mode="floor") * tile_h).to(torch.float32)
+    lxf = pxf - oxf  # exact: small integers + 0.5
+    lyf = pyf - oyf
+
+    def ev(r):
+        a, b, c = rows12[:, r, :-1], rows12[:, r + 1, :-1], rows12[:, r + 2, :-1]
+        return a * lxf + b * lyf + (c + a * oxf + b * oyf)
+
+    e0, e1, e2, z = ev(0), ev(3), ev(6), ev(9)
+    cov = (tiny & inb & (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0)
+           & (z >= -1.0) & (z <= 1.0))
+    pix = torch.where(cov, iy * width + ix, hw)
+    return pix, z
+
+
+def _tiny_images(rows12, attr_rows, bbox4, tiny, height, width, tile_h,
+                 tile_w, cap=0):
+    """Sort-path rasterization of the sub-pixel triangles ``tiny`` (B, T).
+
+    Each emits at most one (pixel, z, id) candidate. One stable sort per
+    view of the int64 key ``pix << 32 | (zb + 2^31)``, zb the z's
+    :func:`_z_sort_bits`, over the candidates in ascending id and then one
+    sentinel per pixel (zb = id = int32 max), orders them by (pixel, z,
+    id): the reference's three-key sort. Every pixel owns a sentinel, so
+    each pixel group is non-empty and its first entry is the pixel's
+    winner, nearest z then least id; a binary search for each pixel's group
+    start reads the image out.
+
+    ``cap`` (``bin_tiny_cap``, 0 off, ignored at T or more): only the first
+    ``cap`` covered candidates in ascending id enter the sort; the same
+    image while the cap holds them all, and an overflow drops the highest
+    ids, as the reference does.
+
+    Returns z (B, H, W) +inf on background, idm (B, H, W) int32 with
+    ``BACKGROUND_ID`` on background, and with ``attr_rows`` (B, 3(A+1),
+    T+1) the winners' attribute planes evaluated at each pixel (B, A+1, H,
+    W) (:func:`_tiny_finish`), else None."""
+    bsz, t_total = tiny.shape
+    hw = height * width
+    dev = tiny.device
+    pix, z = _tiny_candidates(rows12, bbox4, tiny, height, width, tile_h,
+                              tile_w)
+    zb = torch.where(pix < hw, _z_sort_bits(z), _I32_MAX)
+    tid = torch.arange(t_total, dtype=torch.int32, device=dev).expand(bsz, -1)
+    if 0 < cap < t_total:
+        # Ascending covered ids: each covered candidate's rank among them is
+        # its slot; the rest (and ranks past the cap) go to a spare slot.
+        cov = pix < hw
+        rank = torch.cumsum(cov, dim=1) - 1
+        slot = torch.where(cov & (rank < cap), rank, cap)
+        sid = torch.full((bsz, cap + 1), t_total, dtype=torch.int32, device=dev)
+        sid = sid.scatter(1, slot, tid)[:, :cap]
+        live = sid < t_total
+        sidx = torch.clamp(sid, max=t_total - 1).long()
+        pix = torch.where(live, torch.gather(pix, 1, sidx), hw)
+        zb = torch.where(live, torch.gather(zb, 1, sidx), _I32_MAX)
+        tid = torch.where(live, sid, _I32_MAX)
+    pixels = torch.arange(hw, dtype=torch.int64, device=dev).expand(bsz, -1)
+    pix_all = torch.cat([pix.long(), pixels], dim=1)
+    zb_all = torch.cat([zb.long(), torch.full((bsz, hw), _I32_MAX, device=dev)],
+                       dim=1)
+    tid_all = torch.cat(
+        [tid, torch.full((bsz, hw), _I32_MAX, dtype=torch.int32, device=dev)],
+        dim=1)
+    key, order = torch.sort((pix_all << 32) | (zb_all + 2**31), dim=1,
+                            stable=True)
+    first = torch.searchsorted(key >> 32, pixels.contiguous())
+    zb_img = (torch.gather(key, 1, first) & 0xFFFFFFFF) - 2**31
+    tid_img = torch.gather(tid_all, 1, torch.gather(order, 1, first))
+    bg = tid_img == _I32_MAX
+    z_img = torch.where(bg, torch.inf, _z_from_sort_bits(zb_img))
+    idm = torch.where(bg, BACKGROUND_ID, tid_img).to(torch.int32)
+    vals = None
+    if attr_rows is not None:
+        # Background pixels read the zero padding row T.
+        row = torch.where(bg, t_total, tid_img).long()
+        g = torch.gather(attr_rows, 2,
+                         row[:, None].expand(bsz, attr_rows.shape[1], hw))
+        vals = _tiny_finish(g, height, width, tile_h, tile_w)
+    return (z_img.reshape(bsz, height, width), idm.reshape(bsz, height, width),
+            vals)
+
+
+def _tiny_finish(g, height, width, tile_h, tile_w):
+    """The winners' attribute planes g (B, 3(A+1), H*W), rows [val0_a,
+    val0_b, val0_g, val1_a, ...], evaluated at each pixel centre, rebased
+    to its tile origin in the candidate test's order: (B, A+1, H, W)."""
+    bsz = g.shape[0]
+    p = torch.arange(height * width, device=g.device)
+    px_i, py_i = p % width, p // width
+    ox = (px_i // tile_w * tile_w).to(torch.float32)
+    oy = (py_i // tile_h * tile_h).to(torch.float32)
+    lx = px_i.to(torch.float32) + 0.5 - ox
+    ly = py_i.to(torch.float32) + 0.5 - oy
+    a, b, c = g[:, 0::3], g[:, 1::3], g[:, 2::3]
+    vals = a * lx + b * ly + (c + a * ox + b * oy)
+    return vals.reshape(bsz, -1, height, width)
+
+
+def _merge_zidvals(z_a, idm_a, vals_a, z_b, idm_b, vals_b):
+    """Merge two (z, id, vals) image sets by nearest z, least id on an
+    exact z tie (-0 == +0 here, so the id decides). Backgrounds carry
+    z = +inf and the background id in both. vals (B, C, H, W) are merged
+    where both are given, else ``vals_a`` is returned."""
+    take_b = (z_b < z_a) | ((z_b == z_a) & (idm_b < idm_a))
+    z = torch.where(take_b, z_b, z_a)
+    idm = torch.where(take_b, idm_b, idm_a)
+    vals = vals_a
+    if vals_a is not None and vals_b is not None:
+        vals = torch.where(take_b[:, None], vals_b, vals_a)
+    return z, idm, vals
+
+
+def _tiny_for(setup: _TriSetupT, attr_rows, height, width, config):
+    """The sort path's images for ``config.bin_tiny_px`` > 0 (else None)."""
+    if config.bin_tiny_px <= 0:
+        return None
+    return _tiny_images(
+        setup.planes12, attr_rows, setup.bbox4,
+        _tiny_mask(setup, config.bin_tiny_px), height, width, config.tile_h,
+        config.tile_w, cap=config.bin_tiny_cap,
+    )
 
 
 def _flat_chunks(
@@ -205,10 +374,13 @@ def _flat_chunks_finish(
 def _k1_inputs(pos, tri, v_attr, height, width, config, pos_world=None,
                mvp=None, tri_attr=None, uv_mode=False):
     """Triangle setup, binning and chunk prep for a batch of views: K1's
-    inputs ``(recs, flat_ids, start_chunks, n_chunks)`` and its static
-    arguments ``(n_vals, tile_h, tile_w, n_ty, n_tx, c)``. ``tri_attr``
-    (T, 3): corner indices into ``v_attr`` where its topology differs from
-    ``tri``; ``uv_mode``: the attributes are the (u, v) barycentrics."""
+    inputs ``(recs, flat_ids, start_chunks, n_chunks)``, its static
+    arguments ``(n_vals, tile_h, tile_w, n_ty, n_tx, c)``, and third the
+    sort path's images (:func:`_tiny_images`) with ``bin_tiny_px`` on, else
+    None. ``tri_attr`` (T, 3): corner indices into ``v_attr`` where its
+    topology differs from ``tri``; ``uv_mode``: the attributes are the
+    (u, v) barycentrics."""
+    _check_tiny_px(config)
     tile_h, tile_w = config.tile_h, config.tile_w
     n_ty, n_tx = -(-height // tile_h), -(-width // tile_w)
     n_tiles = n_ty * n_tx
@@ -266,8 +438,10 @@ def _k1_inputs(pos, tri, v_attr, height, width, config, pos_world=None,
         table, 2, flat_ids.long()[:, None].expand(bsz, table.shape[1], l_cap)
     )
     recs = _flat_chunks_finish(rec, chunk_tile, n_tx, tile_w, tile_h, c)
-    return (recs, flat_ids, start_chunks, n_chunks), (nv, tile_h, tile_w,
-                                                       n_ty, n_tx, c)
+    tiny = _tiny_for(setup, attr_rows if n_attr > 0 else None, height, width,
+                     config)
+    return ((recs, flat_ids, start_chunks, n_chunks),
+            (nv, tile_h, tile_w, n_ty, n_tx, c), tiny)
 
 
 def _bin_flat_config(setup, width, height, config):
@@ -280,6 +454,7 @@ def _bin_flat_config(setup, width, height, config):
         med_span_x=config.bin_med_span_x,
         cap_abs=config.bin_flat_cap_abs,
         small_cap=config.bin_small_cap,
+        tiny_px=config.bin_tiny_px,
         cull_margin=_CULL_MARGIN if config.bin_cull else 0.0,
     )
 
@@ -298,20 +473,24 @@ def _gbuffer_dma_batched(
     tri_attr=None, uv_mode=False,
 ):
     """The flat path for a batch of views: chunk prep, then ONE K1 launch
-    over the (views, tiles) grid."""
-    inputs, dims = _k1_inputs(pos, tri, v_attr, height, width, config,
-                              pos_world=pos_world, mvp=mvp, tri_attr=tri_attr,
-                              uv_mode=uv_mode)
+    over the (views, tiles) grid, merged with the sort path's images when
+    ``bin_tiny_px`` is on."""
+    inputs, dims, tiny = _k1_inputs(pos, tri, v_attr, height, width, config,
+                                    pos_world=pos_world, mvp=mvp,
+                                    tri_attr=tri_attr, uv_mode=uv_mode)
     z, idm, vals = gbuffer_tiles(*inputs, *dims)
     z = z[:, :height, :width]
     idm = idm[:, :height, :width]
+    vals = vals[:, :, :height, :width]
+    if tiny is not None:
+        z, idm, vals = _merge_zidvals(z, idm, vals, *tiny)
     mask = torch.isfinite(z) & (idm < BACKGROUND_ID)
     z = torch.where(mask, z, 0.0)
     tri_id = torch.where(mask, idm + 1, 0)
 
     attr = None
     if v_attr is not None or uv_mode:
-        attr = _attr_from_vals(vals[:, :, :height, :width], mask)
+        attr = _attr_from_vals(vals, mask)
     return mask, z, tri_id, attr
 
 
@@ -319,12 +498,14 @@ def _zattr_inputs(pos, tri, v_attr, height, width, config, tri_attr=None,
                   uv_mode=False):
     """Classic setup, a constant id plane (a = b = 0, g = triangle id) beside
     the attribute planes, binning and the tile row gather for a batch of
-    views: K2's and K3's inputs ``(coeffs, counts)`` and their static
-    arguments ``(n_vals, tile_h, tile_w, chunk)``. At scale
-    (:func:`_use_flat`) the rows are windows of ``k_cap`` entries of the
-    flat binning, below it dense per-tile lists; ``k_cap`` is
-    ``max_tris_per_tile`` (or the automatic cap) and at most T.
-    ``uv_mode``: the attributes are the (u, v) barycentrics."""
+    views: K2's and K3's inputs ``(coeffs, counts)``, their static
+    arguments ``(n_vals, tile_h, tile_w, chunk)``, and third the sort
+    path's images (:func:`_tiny_images`) at scale with ``bin_tiny_px`` on,
+    else None. At scale (:func:`_use_flat`) the rows are windows of
+    ``k_cap`` entries of the flat binning, below it dense per-tile lists;
+    ``k_cap`` is ``max_tris_per_tile`` (or the automatic cap) and at most
+    T. ``uv_mode``: the attributes are the (u, v) barycentrics."""
+    _check_tiny_px(config)
     bsz, t_total = pos.shape[0], tri.shape[0]
     if t_total >= 2**24:
         raise ValueError(
@@ -353,17 +534,23 @@ def _zattr_inputs(pos, tri, v_attr, height, width, config, tri_attr=None,
     all_planes = torch.cat([setup.planes, id_plane, attr_planes], dim=2)
     k_cap = min(config.max_tris_per_tile or _auto_cap(t_total, n_ty * n_tx),
                 t_total)
+    tiny = None
     if _use_flat(config, t_total, n_ty * n_tx):
         flat = _bin_flat_config(setup_t, width, height, config)
         coeffs, counts = _gather_tile_rows_flat(all_planes, setup.valid, flat,
                                                 k_cap, n_tx, tile_w, tile_h)
+        attr_rows = None
+        if n_attr > 0:
+            attr_rows = all_planes[:, :, 5:].reshape(bsz, t_total + 1, -1)
+            attr_rows = attr_rows.transpose(1, 2)
+        tiny = _tiny_for(setup_t, attr_rows, height, width, config)
     else:
         ids, counts = _bin_triangles(setup, width, height, tile_h, tile_w,
                                      k_cap)
         origins = _tile_origins(n_ty, n_tx, tile_h, tile_w, dev)
         coeffs = _gather_tile_rows(all_planes, setup.valid, ids, origins)
         counts = counts.reshape(-1)
-    return (coeffs, counts), (n_attr + 1, tile_h, tile_w, config.chunk)
+    return (coeffs, counts), (n_attr + 1, tile_h, tile_w, config.chunk), tiny
 
 
 def _gbuffer_single(pos, tri, v_attr, height, width, config, tri_attr=None,
@@ -371,23 +558,29 @@ def _gbuffer_single(pos, tri, v_attr, height, width, config, tri_attr=None,
     """The per-tile path for a batch of views (the JAX package's per-view
     ``_gbuffer_single``): the tile rows of :func:`_zattr_inputs`, then ONE
     launch of K2 — or K3 for ``backend="vpu_pallas"`` — over every (view,
-    tile)."""
+    tile), merged with the sort path's images when ``bin_tiny_px`` is on at
+    scale."""
     tile_h, tile_w = config.tile_h, config.tile_w
     n_ty, n_tx = -(-height // tile_h), -(-width // tile_w)
     bsz = pos.shape[0]
-    inputs, dims = _zattr_inputs(pos, tri, v_attr, height, width, config,
-                                 tri_attr=tri_attr, uv_mode=uv_mode)
+    inputs, dims, tiny = _zattr_inputs(pos, tri, v_attr, height, width,
+                                       config, tri_attr=tri_attr,
+                                       uv_mode=uv_mode)
     kernel = zattr_tiles_vpu if config.backend == "vpu_pallas" else zattr_tiles
     z_t, id_t, v_t = kernel(*inputs, *dims)
     z = _detile(z_t, bsz, n_ty, n_tx, height, width)
     tid = _detile(id_t, bsz, n_ty, n_tx, height, width)
+    vals = _detile(v_t, bsz, n_ty, n_tx, height, width)
+    if tiny is not None:
+        z_b, id_b, vals_b = tiny
+        z, tid, vals = _merge_zidvals(z, tid, vals, z_b,
+                                      id_b.to(torch.float32), vals_b)
     mask = torch.isfinite(z) & (tid < BACKGROUND_ID)
     z = torch.where(mask, z, 0.0)
     tri_id = torch.where(mask, tid.to(torch.int32) + 1, 0)
     attr = None
     if v_attr is not None or uv_mode:
-        attr = _attr_from_vals(_detile(v_t, bsz, n_ty, n_tx, height, width),
-                               mask)
+        attr = _attr_from_vals(vals, mask)
     return mask, z, tri_id, attr
 
 

@@ -49,8 +49,12 @@ class RasterizerConfig(NamedTuple):
       * ``kernel_unroll``, ``dma_group``, ``cov_mode``, ``winner_mode`` and
         ``chunk_slice_mode`` are accepted and ignored (bit-identical knobs
         of the TPU kernel);
-      * ``bin_subtile > 1`` and ``bin_tiny_px > 0`` raise
-        ``NotImplementedError`` (ROADMAP queue 1 item 7);
+      * ``bin_subtile > 1`` raises ``NotImplementedError`` (it waits for
+        slice 8 of the port, ROADMAP queue 1);
+      * ``bin_tiny_px`` (at most 1.0) sends sub-pixel triangles through the
+        sort path of ``gbuffer.py`` wherever the JAX package does: the fused
+        G-buffer paths and classic ``rasterize`` at scale; below
+        ``bin_sort_pairs_min_tris`` triangles the classic path ignores it;
       * ``backend`` takes the JAX package's names and picks the kernel
         (see ``_BACKEND_NAMES``); each kernel's wrapper picks the CUDA
         kernel or its plain version by the tensors' device.
@@ -119,19 +123,24 @@ _XLA_BACKENDS = ("xla", "fused_xla")
 
 
 def _check_ported(config: RasterizerConfig) -> None:
-    """Raise on an unknown backend name and on config values whose code
-    paths are not ported yet."""
+    """Raise on an unknown backend name and on the one config value whose
+    code path is not ported yet."""
     if config.backend not in _BACKEND_NAMES:
         raise ValueError(f"unknown backend {config.backend!r}")
     if config.bin_subtile != 1:
         raise NotImplementedError(
-            "bin_subtile > 1 (sub-tile row banding) is not ported yet "
-            "(ROADMAP queue 1 item 7)"
+            "bin_subtile > 1 (sub-tile row banding) is not ported yet; it "
+            "comes with slice 8 of the port (ROADMAP queue 1)"
         )
-    if config.bin_tiny_px > 0:
-        raise NotImplementedError(
-            "bin_tiny_px > 0 (the sub-pixel sort path) is not ported yet "
-            "(ROADMAP queue 1 item 7)"
+
+
+def _check_tiny_px(config: RasterizerConfig) -> None:
+    """The sort path's exactness bound, checked where the JAX package's
+    G-buffer paths check it."""
+    if config.bin_tiny_px > 1.0:
+        raise ValueError(
+            "bin_tiny_px must be <= 1.0 (a 1 px bbox is the single-"
+            "candidate exactness bound)"
         )
 
 
@@ -333,12 +342,14 @@ def _bin_classify(
     n_med: int,
     med_span_y: int,
     med_span_x: int,
+    tiny_px: float = 0.0,
 ):
     """bbox -> tile range and size tier, shared by :func:`_bin_flat` and
     :func:`binning_stats` so the budget guard stays in lockstep with the
     binning. Returns (tx0, tx1, ty0, ty1, span_x, span_y, on_screen, small,
     medium, huge), each (B, T); ``small`` is masked by on_screen,
-    ``medium``/``huge`` are not."""
+    ``medium``/``huge`` are not. ``tiny_px`` > 0 takes the triangles of
+    :func:`_tiny_mask` out of the small tier: the sort path owns them."""
     n_ty = -(-height // tile_h)
     n_tx = -(-width // tile_w)
     xmin, xmax, ymin, ymax = _bbox_vectors(setup)
@@ -366,11 +377,15 @@ def _bin_classify(
         medium = torch.zeros_like(big)
         huge = big
     small = on_screen & ~big
+    if tiny_px > 0:
+        # A tiny bbox spans one tile, so only the small tier loses them.
+        small = small & ~_tiny_mask(setup, tiny_px)
     return tx0, tx1, ty0, ty1, span_x, span_y, on_screen, small, medium, huge
 
 
 def _tiny_mask(setup: _TriSetupT, tiny_px: float) -> torch.Tensor:
-    """Live triangles whose bbox is smaller than tiny_px in both axes."""
+    """Live triangles whose bbox is smaller than tiny_px in both axes: at
+    most one pixel centre per axis, the sort path's triangles."""
     xmin, xmax, ymin, ymax = _bbox_vectors(setup)
     return (
         setup.valid[:, :-1] & ((xmax - xmin) < tiny_px) & ((ymax - ymin) < tiny_px)
@@ -424,6 +439,7 @@ def _bin_flat(
     n_med: int = 0,
     med_span_y: int = 8,
     med_span_x: int = 4,
+    tiny_px: float = 0.0,
     cap_abs: int = 0,
     small_cap: int = 0,
     cull_margin: float = 0.0,
@@ -451,7 +467,7 @@ def _bin_flat(
     (tx0, tx1, ty0, ty1, span_x, span_y, on_screen, small, medium, huge) = (
         _bin_classify(
             setup, width, height, tile_h, tile_w, span_y_max, span_x_max,
-            n_med, med_span_y, med_span_x,
+            n_med, med_span_y, med_span_x, tiny_px=tiny_px,
         )
     )
     tri_idx = torch.arange(t_total, dtype=torch.int32, device=dev).expand(
@@ -636,11 +652,26 @@ def binning_stats(pos, tri, resolution, config: RasterizerConfig = DEFAULT_CONFI
             setup, width, height, tile_h, tile_w,
             config.bin_span_tiles_y, config.bin_span_tiles_x,
             config.bin_med, config.bin_med_span_y, config.bin_med_span_x,
+            tiny_px=config.bin_tiny_px,
         )
     )
     bsz = pos.shape[0]
     n_small = small.sum(dim=1)
+    # Potential sort-path triangles at the 1 px exactness bound, whatever
+    # the config (auto_fast_config decides from it whether the path pays).
     n_tiny = _tiny_mask(setup, 1.0).sum(dim=1)
+    n_tiny_cov = torch.zeros(bsz, dtype=torch.int64, device=pos.device)
+    if config.bin_tiny_px > 0:
+        # Tiny triangles make no binning entries; the covered candidates
+        # are counted with the sort path's own candidate test, so the
+        # bin_tiny_cap guard counts exactly what the path emits.
+        from .gbuffer import _tiny_candidates
+
+        tiny_on = _tiny_mask(setup, config.bin_tiny_px)
+        on = on & ~tiny_on
+        pix, _ = _tiny_candidates(setup.planes12, setup.bbox4, tiny_on,
+                                  height, width, tile_h, tile_w)
+        n_tiny_cov = (pix < height * width).sum(dim=1)
     n_med = (medium & on).sum(dim=1)
     n_huge = (huge & on).sum(dim=1)
     live = torch.where(on, span_x * span_y, 0).sum(dim=1)
@@ -676,10 +707,11 @@ def binning_stats(pos, tri, resolution, config: RasterizerConfig = DEFAULT_CONFI
         "n_tiny_1px": int(n_tiny.max()),
         "n_small_tris": int(n_small.max()),
         "small_cap_budget": int(config.bin_small_cap),
-        "n_tiny_cov": 0,
+        "n_tiny_cov": int(n_tiny_cov.max()),
         "tiny_cap_budget": int(config.bin_tiny_cap),
     }
     small_cap_on = 0 < config.bin_small_cap < t_total
+    tiny_cap_on = config.bin_tiny_px > 0 and 0 < config.bin_tiny_cap < t_total
     stats["ok"] = (
         stats["n_huge"] <= stats["huge_budget"]
         and stats["n_med"] <= stats["med_budget"]
@@ -688,6 +720,10 @@ def binning_stats(pos, tri, resolution, config: RasterizerConfig = DEFAULT_CONFI
         and (
             not small_cap_on
             or stats["n_small_tris"] <= stats["small_cap_budget"]
+        )
+        and (
+            not tiny_cap_on
+            or stats["n_tiny_cov"] <= stats["tiny_cap_budget"]
         )
     )
     return stats
@@ -708,13 +744,17 @@ def auto_fast_config(
     scene's :func:`binning_stats` times ``headroom`` (rounded up to powers
     of two) and validated lossless. pos (B, V, 4) clip positions for the
     cameras that will be rendered; ``extra_probes`` are further
-    (pos, tri, resolution) the same config must stay lossless for.
-    Returns the same config as the JAX package's ``auto_fast_config``."""
+    (pos, tri, resolution) the same config must stay lossless for. With
+    ``bin_tiny_px`` on (set by the caller, or by ``auto_tiny`` for scenes of
+    at least 300k triangles, 60% of them sub-pixel), the absolute entry
+    cap, the small-tier cap and the sort path's candidate cap are sized
+    from the measured counts times ``cap_headroom``. Returns the same
+    config as the JAX package's ``auto_fast_config``."""
     if backface_cull:
         base = base._replace(backface_cull=backface_cull)
     if auto_tiny and base.bin_tiny_px == 0:
-        # Heavily sub-pixel scenes switch to the sort path, which this port
-        # does not have yet: binning_stats raises for them.
+        # Heavily sub-pixel scenes (at least 300k triangles, 60% of them
+        # under a pixel) switch to the sort path.
         t_total = int(tri.shape[0])
         if t_total >= 300_000:
             pre = binning_stats(pos, tri, resolution, base)
@@ -750,9 +790,29 @@ def auto_fast_config(
                     cap_factor,
                     -(-int(headroom * st["live_entries"]) // t_tot),
                 )
+
+    def granule(need):
+        # Powers of two up to 64k entries, then multiples of 8,192.
+        return (pow2_at_least(need, 4096) if need <= 65536
+                else -(-need // 8192) * 8192)
+
+    cap_abs = base.bin_flat_cap_abs
+    small_cap = base.bin_small_cap
+    tiny_cap = base.bin_tiny_cap
+    if base.bin_tiny_px > 0:
+        # With the sort path on, the binned entries, the small tier and the
+        # covered sort-path candidates sit far below their T-sized bounds:
+        # size an absolute entry cap, a two-stage small tier and the
+        # candidate compaction from the worst view, times cap_headroom.
+        worst = {k: max(st[k] for st in stats_list)
+                 for k in ("live_entries", "n_small_tris", "n_tiny_cov")}
+        cap_abs = granule(int(cap_headroom * worst["live_entries"]))
+        small_cap = granule(int(cap_headroom * worst["n_small_tris"]))
+        tiny_cap = granule(int(cap_headroom * worst["n_tiny_cov"]))
     cfg = base._replace(
         bin_med=med, bin_huge=huge, max_tris_per_tile=k_cap,
-        bin_flat_cap_factor=cap_factor,
+        bin_flat_cap_factor=cap_factor, bin_flat_cap_abs=cap_abs,
+        bin_small_cap=small_cap, bin_tiny_cap=tiny_cap,
     )
     for p_i, t_i, r_i in probes:
         final = binning_stats(p_i, t_i, r_i, cfg)

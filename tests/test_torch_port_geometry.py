@@ -317,11 +317,11 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_options_raise():
-    # Only sub-tile banding is still to port (slice 8): it raises on the
-    # flat path, below it and on the classic branch. The sub-pixel sort
-    # path renders on all three (at scale it takes the tiny triangles; below
-    # the flat path and on the classic branch below it, bin_tiny_px does
-    # nothing).
+    # No RasterizerConfig value raises any more: sub-tile banding
+    # (bin_subtile=2) renders equal to 1 on the flat path, below it and on
+    # the classic branch, and so does the sub-pixel sort path (at scale it
+    # takes the tiny triangles; below the flat path and on the classic
+    # branch below it, bin_tiny_px does nothing).
     v, f = pt.make_grid_mesh(48)
     mesh = pt.mesh_from_arrays(v, f, device="cpu")
     cam = pt.get_camera(elevation_deg=30.0, distance=3.0, fovy_deg=45.0,
@@ -330,15 +330,17 @@ def test_unported_options_raise():
     assert mesh.num_faces >= 4096 > small.num_faces
     for m in (mesh, small):
         for backend in ("auto", "xla"):
-            with pytest.raises(NotImplementedError, match="slice 8"):
-                pt.render(m, cam, 32, 32, render_attr=False, device="cpu",
-                          raster_config=pt.RasterizerConfig(
-                              backend=backend, bin_subtile=2))
             # 32x32 tiles: the plain tile passes scan 1,024 pixels, not
             # the default tile's 4,096.
             base = pt.RasterizerConfig(backend=backend, tile_w=32)
             off = pt.render(m, cam, 32, 32, render_attr=False, device="cpu",
                             raster_config=base)
+            banded = pt.render(m, cam, 32, 32, render_attr=False,
+                               device="cpu",
+                               raster_config=base._replace(bin_subtile=2))
+            for a, b in zip(banded, off):
+                assert (a is None) == (b is None)
+                assert a is None or torch.equal(a, b)
             on = pt.render(m, cam, 32, 32, render_attr=False, device="cpu",
                            raster_config=base._replace(bin_tiny_px=1.0))
             assert on.mask.any()

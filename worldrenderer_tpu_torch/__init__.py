@@ -7,7 +7,10 @@ the LOD chain's decimation (``meshproc``) run on the host and move their
 results there. The rasterizer's tile passes are
 hand-written CUDA kernels for Hopper (``csrc/``) whose plain PyTorch
 versions run on the CPU; so are the measurement probes of ``probes/``.
+``baking`` projects multi-view images onto a mesh's UV texture.
 """
+
+from . import baking
 
 from .camera import (
     Camera,
@@ -40,6 +43,7 @@ from .mesh import (
 )
 from .ops.antialias import antialias
 from .ops.gbuffer import GBufferOutput, rasterize_gbuffer
+from .ops.grid_sample import grid_sample
 from .ops.interpolate import interpolate
 from .ops.rasterize import (
     DEFAULT_CONFIG,
@@ -73,6 +77,7 @@ __all__ = [
     "LODChain", "build_lod_chain", "select_lod_level",
     "antialias", "GBufferOutput", "rasterize_gbuffer", "interpolate",
     "rasterize", "rasterize_db", "texture", "texture_construct_mip",
+    "grid_sample", "baking",
     "DEFAULT_CONFIG", "FAST_TPU_CONFIG", "RasterizerConfig",
     "auto_fast_config", "binning_stats",
     "DepthControlNetNormalization", "RenderOutput", "SimpleNormalization",

@@ -14,6 +14,15 @@
 // chunks [start_chunks[t], start_chunks[t] + n_chunks[t]), each c entries,
 // ascending by triangle id; dead entries carry e0 g = -3e38.
 //
+// Row banding (RasterizerConfig.bin_subtile = sub > 1): the prep bins each
+// tile's sub bands of tile_h / sub rows apart, and the launcher takes the
+// bands as its tiles (tile_h the band's rows, n_ty the band rows). Records
+// stay rebased to the output tile's origin, so a pixel of band h takes its
+// tile-local ly, h * band_h rows further down, as the TPU kernel does
+// (gbuffer_pallas.py:609-660): every pixel evaluates the expressions of
+// sub = 1 over its band's candidates, and bands share no pixels, so no
+// merge is needed and each band splits over blocks as a tile does.
+//
 // What bounds it: fp32 arithmetic. Evaluated pixel by pixel, an (entry,
 // pixel) pair costs four planes (8 multiplies, 8 adds) and six compares,
 // while an entry's 12 geometry coefficients (48 bytes) serve every pixel of
@@ -85,7 +94,7 @@ struct K1Args {
   float* z_out;
   int* id_out;
   float* v_out;
-  int n_rows, l_cap, n_ty, n_tx, tile_h, tile_w, n_vals, c, groups;
+  int n_rows, l_cap, n_ty, n_tx, tile_h, tile_w, n_vals, c, groups, sub;
 };
 
 // One part: NG groups of pixels from pixel p0 (tile_scan::part_pixel),
@@ -99,12 +108,16 @@ __device__ __forceinline__ void scan_part(const K1Args& a, float* geo, int b,
   const int p_tile = a.tile_h * a.tile_w;
   const float* rec = a.recs + static_cast<size_t>(b) * a.n_rows * a.l_cap;
 
-  // zbest starts at kZCap, so "z < zbest" also tests z <= 1.
+  // zbest starts at kZCap, so "z < zbest" also tests z <= 1. A band's
+  // rows start band * tile_h rows down its output tile (exact in f32).
+  const float band_ly =
+      static_cast<float>((tile / a.n_tx) % a.sub * a.tile_h);
   float lx[NG], ly[NG], zbest[NG];
   int win[NG];
 #pragma unroll
   for (int q = 0; q < NG; ++q) {
     pixel_centre(part_pixel<NG, kRow>(p0, q, a.tile_w), a.tile_w, lx[q], ly[q]);
+    ly[q] = __fadd_rn(ly[q], band_ly);
     zbest[q] = kZCap;
     win[q] = -1;
   }
@@ -230,19 +243,22 @@ constexpr size_t kMaxSmem = 227 * 1024;
 
 }  // namespace
 
-// Launch K1 on `stream`. Returns cudaGetLastError() after the launch (0 on
-// success); cudaErrorInvalidValue for shapes it does not take (a tile of
-// more than 16 * 256 pixels, two chunk slots above 227 KB of shared memory,
-// an empty grid).
+// Launch K1 on `stream` over n_ty x n_tx tiles of tile_h x tile_w pixels:
+// the output tiles, or with sub > 1 their bands (n_ty band rows of tile_h
+// rows, sub of them to an output tile). Returns cudaGetLastError() after the
+// launch (0 on success); cudaErrorInvalidValue for shapes it does not take
+// (a tile of more than 16 * 256 pixels, two chunk slots above 227 KB of
+// shared memory, an empty grid, band rows that do not fill whole tiles).
 extern "C" int gbuffer_tiles_launch(const void* recs, const void* ids,
                                     const void* start_chunks,
                                     const void* n_chunks, void* z_out,
                                     void* id_out, void* v_out, int bsz,
                                     int n_rows, int l_cap, int n_ty, int n_tx,
                                     int tile_h, int tile_w, int n_vals, int c,
-                                    void* stream) {
+                                    int sub, void* stream) {
   const int ppt = tile_h > 0 && tile_w > 0 ? pixels_per_thread(tile_h * tile_w) : 0;
   if (bsz <= 0 || n_ty <= 0 || n_tx <= 0 || c <= 0 || l_cap % c != 0 ||
+      sub <= 0 || n_ty % sub != 0 ||
       n_rows != kGeoRows + 3 * n_vals || smem_bytes(c) > kMaxSmem || ppt == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -262,7 +278,8 @@ extern "C" int gbuffer_tiles_launch(const void* recs, const void* ids,
            static_cast<int*>(id_out),
            static_cast<float*>(v_out),
            n_rows, l_cap, n_ty, n_tx, tile_h, tile_w, n_vals, c,
-           ppt};  // groups of kThreads pixels: the pixels per thread of one block
+           ppt,  // groups of kThreads pixels: the pixels per thread of one block
+           sub};
   const dim3 grid(ppt * n_ty * n_tx, bsz);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -352,10 +352,16 @@ def _flat_chunks_finish(
     tile_w: int,
     tile_h: int,
     c: int,
+    sub: int = 1,
 ) -> torch.Tensor:
     """Rebase every gathered record's constants to its tile's origin:
     (B, 12 + 3nv, l_cap) in, K1's ``recs`` out (same rows, each plane's g
-    replaced by g + a*ox + b*oy)."""
+    replaced by g + a*ox + b*oy).
+
+    ``sub`` > 1 (``bin_subtile``): ``chunk_tile`` indexes band bins, ``sub``
+    band rows to a tile row, and the rebase stays at the output TILE's
+    origin (``tile_h`` its height): a band origin would change every
+    pixel's float expression, and K1 offsets each band's ly instead."""
     bsz, n_rows, l_cap = rec.shape
     nch_total = l_cap // c
     planes = rec.reshape(bsz, n_rows // 3, 3, l_cap)
@@ -366,7 +372,8 @@ def _flat_chunks_finish(
         return v.reshape(bsz, 1, l_cap)
 
     ox = origin((chunk_tile % n_tx) * tile_w)
-    oy = origin((chunk_tile // n_tx) * tile_h)
+    rows = chunk_tile // n_tx
+    oy = origin((rows // sub if sub > 1 else rows) * tile_h)
     g = g + a * ox + b * oy
     return torch.stack([a, b, g], dim=2).reshape(bsz, n_rows, l_cap)
 
@@ -375,15 +382,26 @@ def _k1_inputs(pos, tri, v_attr, height, width, config, pos_world=None,
                mvp=None, tri_attr=None, uv_mode=False):
     """Triangle setup, binning and chunk prep for a batch of views: K1's
     inputs ``(recs, flat_ids, start_chunks, n_chunks)``, its static
-    arguments ``(n_vals, tile_h, tile_w, n_ty, n_tx, c)``, and third the
-    sort path's images (:func:`_tiny_images`) with ``bin_tiny_px`` on, else
-    None. ``tri_attr`` (T, 3): corner indices into ``v_attr`` where its
+    arguments ``(n_vals, tile_h, tile_w, n_ty, n_tx, c, sub)``, and third
+    the sort path's images (:func:`_tiny_images`) with ``bin_tiny_px`` on,
+    else None. ``tri_attr`` (T, 3): corner indices into ``v_attr`` where its
     topology differs from ``tri``; ``uv_mode``: the attributes are the
-    (u, v) barycentrics."""
+    (u, v) barycentrics.
+
+    ``bin_subtile`` = sub > 1 bins at bands of tile_h / sub rows over the
+    padded tile grid (spans in band units), one (start, count) pair per
+    band in band-row-major order; the output stays at tile granularity."""
     _check_tiny_px(config)
     tile_h, tile_w = config.tile_h, config.tile_w
+    sub = config.bin_subtile
+    if sub < 1 or tile_h % sub:
+        raise ValueError(
+            f"bin_subtile ({sub}) must be >= 1 and divide tile_h ({tile_h})"
+        )
     n_ty, n_tx = -(-height // tile_h), -(-width // tile_w)
-    n_tiles = n_ty * n_tx
+    # The band bins tile the padded output grid: every tile owns sub bins.
+    n_bins = n_ty * n_tx * sub
+    bin_height = n_ty * tile_h if sub > 1 else height
     t_total = tri.shape[0]
     bsz = pos.shape[0]
     if uv_mode:
@@ -393,10 +411,10 @@ def _k1_inputs(pos, tri, v_attr, height, width, config, pos_world=None,
     nv = n_attr + 1 if n_attr > 0 else 1
 
     c = chunk_size(config.chunk)
-    k_cap = min(config.max_tris_per_tile or _auto_cap(t_total, n_tiles), t_total)
+    k_cap = min(config.max_tris_per_tile or _auto_cap(t_total, n_bins), t_total)
     span = config.bin_span_tiles_y * config.bin_span_tiles_x
     l_keys = t_total * span + (
-        min(config.bin_huge, t_total) * n_tiles if config.bin_huge > 0 else 0
+        min(config.bin_huge, t_total) * n_bins if config.bin_huge > 0 else 0
     )
     if config.bin_med > 0:
         l_keys += (
@@ -408,7 +426,7 @@ def _k1_inputs(pos, tri, v_attr, height, width, config, pos_world=None,
     if config.bin_flat_cap_abs > 0:
         l_keys = min(l_keys, config.bin_flat_cap_abs)
     # Upper bound on the sum of c-aligned (capped) segment lengths.
-    l_cap = min(l_keys + n_tiles * (c - 1), n_tiles * (-(-k_cap // c) * c))
+    l_cap = min(l_keys + n_bins * (c - 1), n_bins * (-(-k_cap // c) * c))
     l_cap = -(-l_cap // c) * c
 
     vmajor = tri.T.reshape(-1)
@@ -422,7 +440,8 @@ def _k1_inputs(pos, tri, v_attr, height, width, config, pos_world=None,
         v_all = _clip_corners(pos, tri)
 
     setup = _triangle_setup_t(v_all, width, height, config.backface_cull)
-    flat = _bin_flat_config(setup, width, height, config)
+    flat = _bin_flat_config(setup, width, bin_height, config,
+                            tile_h=tile_h // sub)
     if uv_mode:
         attr_rows = _attr_planes_t(setup, _uv_corner_attrs_t(t_total, pos.device))
     elif v_attr is not None:
@@ -437,17 +456,18 @@ def _k1_inputs(pos, tri, v_attr, height, width, config, pos_world=None,
     rec = torch.gather(
         table, 2, flat_ids.long()[:, None].expand(bsz, table.shape[1], l_cap)
     )
-    recs = _flat_chunks_finish(rec, chunk_tile, n_tx, tile_w, tile_h, c)
+    recs = _flat_chunks_finish(rec, chunk_tile, n_tx, tile_w, tile_h, c, sub)
     tiny = _tiny_for(setup, attr_rows if n_attr > 0 else None, height, width,
                      config)
     return ((recs, flat_ids, start_chunks, n_chunks),
-            (nv, tile_h, tile_w, n_ty, n_tx, c), tiny)
+            (nv, tile_h, tile_w, n_ty, n_tx, c, sub), tiny)
 
 
-def _bin_flat_config(setup, width, height, config):
-    """:func:`_bin_flat` with ``config``'s tiles, tiers, caps and cull."""
+def _bin_flat_config(setup, width, height, config, tile_h=None):
+    """:func:`_bin_flat` with ``config``'s tiles (bins of ``tile_h`` rows
+    where given), tiers, caps and cull."""
     return _bin_flat(
-        setup, width, height, config.tile_h, config.tile_w,
+        setup, width, height, tile_h or config.tile_h, config.tile_w,
         config.bin_span_tiles_y, config.bin_span_tiles_x, config.bin_huge,
         config.bin_flat_cap_factor,
         n_med=config.bin_med, med_span_y=config.bin_med_span_y,
@@ -589,8 +609,10 @@ def _gbuffer_core(pos, tri, v_attr, height, width, config, tri_attr=None,
     """The DMA path (K1) at scale for the K1 backends, else the per-tile
     path."""
     n_tiles = (-(-height // config.tile_h)) * (-(-width // config.tile_w))
+    # K1 bins at bin_subtile bands: its key space counts them.
+    n_bins = n_tiles * max(config.bin_subtile, 1)
     if (config.backend in _K1_BACKENDS
-            and _use_flat(config, tri.shape[0], n_tiles)):
+            and _use_flat(config, tri.shape[0], n_bins)):
         return _gbuffer_dma_batched(
             pos, tri, v_attr, height, width, config, pos_world=pos_world,
             mvp=mvp, tri_attr=tri_attr,

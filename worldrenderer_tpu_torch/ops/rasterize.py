@@ -49,8 +49,10 @@ class RasterizerConfig(NamedTuple):
       * ``kernel_unroll``, ``dma_group``, ``cov_mode``, ``winner_mode`` and
         ``chunk_slice_mode`` are accepted and ignored (bit-identical knobs
         of the TPU kernel);
-      * ``bin_subtile > 1`` raises ``NotImplementedError`` (it waits for
-        slice 8 of the port, ROADMAP queue 1);
+      * ``bin_subtile`` = s > 1 bins the K1 route at (tile_h / s)-row bands
+        (s must divide ``tile_h`` there) and is bit-identical to s = 1
+        while the budgets are lossless; every other route ignores it, as
+        the JAX package's do;
       * ``bin_tiny_px`` (at most 1.0) sends sub-pixel triangles through the
         sort path of ``gbuffer.py`` wherever the JAX package does: the fused
         G-buffer paths and classic ``rasterize`` at scale; below
@@ -123,15 +125,9 @@ _XLA_BACKENDS = ("xla", "fused_xla")
 
 
 def _check_ported(config: RasterizerConfig) -> None:
-    """Raise on an unknown backend name and on the one config value whose
-    code path is not ported yet."""
+    """Raise on an unknown backend name."""
     if config.backend not in _BACKEND_NAMES:
         raise ValueError(f"unknown backend {config.backend!r}")
-    if config.bin_subtile != 1:
-        raise NotImplementedError(
-            "bin_subtile > 1 (sub-tile row banding) is not ported yet; it "
-            "comes with slice 8 of the port (ROADMAP queue 1)"
-        )
 
 
 def _check_tiny_px(config: RasterizerConfig) -> None:
@@ -638,9 +634,15 @@ def binning_stats(pos, tri, resolution, config: RasterizerConfig = DEFAULT_CONFI
     _check_ported(config)
     height, width = resolution
     tile_h, tile_w = config.tile_h, config.tile_w
-    n_ty = -(-height // tile_h)
+    full_ty = -(-height // tile_h)
     n_tx = -(-width // tile_w)
     t_total = int(tri.shape[0])
+    # bin_subtile: classify and count at the band grid K1's binning uses,
+    # (tile_h / s)-row bins over the padded tile grid.
+    sub = max(config.bin_subtile, 1)
+    bin_h = tile_h // sub
+    bin_height = full_ty * tile_h if sub > 1 else height
+    n_ty = full_ty * sub
     k_cap = config.max_tris_per_tile or _auto_cap(t_total, n_ty * n_tx)
 
     pos = pos.to(torch.float32)
@@ -649,7 +651,7 @@ def binning_stats(pos, tri, resolution, config: RasterizerConfig = DEFAULT_CONFI
     )
     (tx0, tx1, ty0, ty1, span_x, span_y, on, small, medium, huge) = (
         _bin_classify(
-            setup, width, height, tile_h, tile_w,
+            setup, width, bin_height, bin_h, tile_w,
             config.bin_span_tiles_y, config.bin_span_tiles_x,
             config.bin_med, config.bin_med_span_y, config.bin_med_span_x,
             tiny_px=config.bin_tiny_px,
@@ -1066,12 +1068,14 @@ def _resolve_db(setup: _TriSetup, idmap: torch.Tensor) -> torch.Tensor:
     return torch.where((idmap > 0)[..., None], db, 0.0)
 
 
-def _use_flat(config: RasterizerConfig, t_total: int, n_tiles: int) -> bool:
-    """The flat binned path: sort_pairs binning at scale, int32 keys."""
+def _use_flat(config: RasterizerConfig, t_total: int, n_bins: int) -> bool:
+    """The flat binned path: sort_pairs binning at scale, int32 keys
+    ``bin * T + tri`` over ``n_bins`` bins (the tiles, or on the K1 route
+    the tiles times ``bin_subtile``)."""
     return (
         config.bin_mode == "sort_pairs"
         and t_total >= config.bin_sort_pairs_min_tris
-        and (n_tiles + 1) * t_total < 2**31
+        and (n_bins + 1) * t_total < 2**31
     )
 
 
@@ -1113,10 +1117,13 @@ def _rasterize_batched(pos, tri, height, width, config):
         # interpolated one-hot corner attributes of uv mode.
         from .gbuffer import _gbuffer_dma_batched, _gbuffer_single
 
-        if config.backend in _XLA_BACKENDS:
-            gbuffer = _gbuffer_single
-        else:
+        # K1 bins at bin_subtile bands: its key space counts them.
+        n_bins = n_tiles * max(config.bin_subtile, 1)
+        if (config.backend not in _XLA_BACKENDS
+                and _use_flat(config, tri.shape[0], n_bins)):
             gbuffer = _gbuffer_dma_batched
+        else:
+            gbuffer = _gbuffer_single
         _, z, tri_id, uv = gbuffer(
             pos, tri, None, height, width, config, uv_mode=True
         )

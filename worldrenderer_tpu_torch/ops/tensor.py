@@ -81,6 +81,14 @@ def plane_vpu(a, b, g, lx, ly) -> torch.Tensor:
     return fma_f32(lx.double(), a.double(), (ly * b).double()) + g
 
 
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded fp32 square root, on the CPU as on the card (and
+    as XLA's): PyTorch's vectorized fp32 ``sqrt`` on the CPU misses the
+    correctly rounded result for some inputs; the float64 root rounded to
+    fp32 is exact (53 >= 2 * 24 + 2)."""
+    return torch.sqrt(x.double()).float()
+
+
 def fma_dot3(x: torch.Tensor, y: torch.Tensor, dim: int) -> torch.Tensor:
     """``sum_i x_i * y_i`` over the three entries of ``dim``, rounded as
     the reference's 3-term fp32 ``einsum`` at ``Precision.HIGHEST`` rounds

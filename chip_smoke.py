@@ -74,7 +74,28 @@ Phases, one line each; any failure exits nonzero before the last line:
      share from a trace, K1 at the 2048² atlas, and camera_projection
      against the port's CPU run; [bake_full] bench.py:963's bake with
      1,000 Poisson sweeps and gutter padding, the loop's ms and kernels
-     per sweep, and the post-blend on the card against the CPU.
+     per sweep, and the post-blend on the card against the CPU;
+  9. slice 10's paths, the same way: [diff] rasterize_diff on workload 1
+     (K4) and on the headline (K1 in uv mode), the primal bitwise equal to
+     rasterize and view 0's clip-position gradient against the CPU's, and
+     a texture-fit step on config4 (K1) with view 0's texture gradient
+     against the CPU's, forward and backward ms and kernels per step;
+     [warp] compute_warp_field on the bake's scene and
+     camera_projection(warp_images=True) end to end against the CPU;
+     [paint] SmartPainter at the application's settings (score 108 x 256²,
+     inpaint 1024², 4-8 rounds), seconds per round, a round's stage split
+     and idle share, and one round against the CPU at score 128² and
+     inpaint 512².
+To stay within 300 s, the CPU comparisons of earlier phases were cut:
+[tiles] none (its paths are held by [attr], [flat], [classic] and
+[diff]), [classic], [texture] and [lod] view 0, [town] frames 0 and 4,
+[bake] none ([warp] holds the same bake against the CPU with its limits),
+[bake_full] 40 sweeps on the CPU. The CPU runs that [main],
+[flat], [attr] and [diff] hold the card against go in a process of their
+own at the lowest priority (CpuReferences), started first and running
+beside every phase; [warp]'s and [paint]'s in another, started with their
+inputs before [bake] (Slice10). The phases' host-bound times are taken
+beside them.
 The second-to-last line is a JSON record of every kernel (launches on the
 main paths, error against the plain version, times, bound); the last line
 is the device summary, printed only when every phase passed.
@@ -91,8 +112,10 @@ one card (k1_k4_readings, probe_readings).
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -895,6 +918,8 @@ def tile_kernel_checks(pt, gb, pr, zc, rk, dev, card) -> dict:
 # alone, which keeps the whole script within 300 s beside the bake phases
 # and their CPU runs.
 CPU_VIEWS = [0]
+# The town's frames held against the CPU (of the 8 rendered).
+TOWN_CPU_FRAMES = [0, 4]
 
 
 def tiles_phase(pt, gc, zc, rk, dev, card) -> dict:
@@ -903,10 +928,11 @@ def tiles_phase(pt, gc, zc, rk, dev, card) -> dict:
     branch, K2) for fused_pallas, ``rasterize_gbuffer`` (K3) for
     vpu_pallas — ``render`` sends vpu_pallas to its classic branch, as the
     JAX package's does — and ``render`` (classic branch: K4, then
-    interpolate) for pallas. Each run's launch counts, the card against
-    the port's CPU run of view 0 (phase 4's limits), views/s."""
+    interpolate) for pallas. Each run's launch counts and views/s. (Their
+    card-vs-CPU comparisons are held elsewhere since the slice 10 phases
+    took the time: K2's render path by [attr] and [flat], K3's by [flat],
+    K4's by [attr], [classic] and [diff].)"""
     mesh, cam = sphere_scene(pt, dev)
-    cpu_mesh, cpu_cam = mesh.to("cpu"), cam[CPU_VIEWS].to("cpu")
     pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
     kw = dict(render_attr=False, render_depth=True, render_normal=True)
     launches = {}
@@ -918,16 +944,11 @@ def tiles_phase(pt, gc, zc, rk, dev, card) -> dict:
             def run(cfg=cfg):
                 return pt.rasterize_gbuffer(pos, mesh.t_pos_idx, mesh.v_nrm,
                                             (512, 512), cfg, device=dev)
-            ref = pt.rasterize_gbuffer(pos[CPU_VIEWS].cpu(), cpu_mesh.t_pos_idx,
-                                       cpu_mesh.v_nrm, (512, 512), cfg,
-                                       device="cpu")
             entry = "rasterize_gbuffer"
         else:
             def run(cfg=cfg):
                 return pt.render(mesh, cam, 512, 512, raster_config=cfg,
                                  device=dev, **kw)
-            ref = pt.render(cpu_mesh, cpu_cam, 512, 512, raster_config=cfg,
-                            device="cpu", **kw)
             entry = "render"
         reset_counts(gc, zc, rk)
         out = run()
@@ -935,30 +956,14 @@ def tiles_phase(pt, gc, zc, rk, dev, card) -> dict:
         launches[kernel] = launches.get(kernel, 0) + counts[kernel]
         if counts[kernel] < 1:
             raise AssertionError(f"{entry} with {backend} did not launch {kernel}")
-        mask = out.mask[CPU_VIEWS].cpu()
-        fg = int(ref.mask.sum())
-        both = mask & ref.mask
-        mask_diff = int((mask != ref.mask).sum())
-        if entry == "render":
-            errs = {f: float((getattr(out, f)[CPU_VIEWS].cpu() - getattr(ref, f))[both]
-                             .abs().max()) for f in ("pos", "depth", "normal")}
-            ok = errs["pos"] < 1e-4 and errs["depth"] < 1e-4 and errs["normal"] < 5e-4
-        else:
-            id_diff = int((out.tri_id[CPU_VIEWS].cpu() != ref.tri_id).sum())
-            errs = {"z": float((out.z[CPU_VIEWS].cpu() - ref.z)[both].abs().max()),
-                    "normal numerators / denominator": float(
-                        (out.attr[CPU_VIEWS].cpu() - ref.attr)[both].abs().max()),
-                    "tri_id diff": id_diff}
-            ok = (id_diff <= 1e-4 * fg and errs["z"] < 1e-5
-                  and errs["normal numerators / denominator"] < 5e-4)
-        ok = ok and mask_diff <= 1e-4 * fg and fg > 200_000
+        fg = int(out.mask.sum())
         ms = cuda_ms(run, 10)
-        log("tiles", f"{backend} via {entry}: launches {counts}; vs the port "
-            f"on the CPU (view 0): mask diff {mask_diff} of {fg}, {errs}; "
-            f"{ms:.4f} ms = {len(cam) / (ms / 1e3):.2f} views/s ({card})")
-        if not ok:
-            raise AssertionError(f"workload 1 with {backend}: the card "
-                                 "disagrees with the CPU")
+        log("tiles", f"{backend} via {entry}: launches {counts}; foreground "
+            f"{fg}; {ms:.4f} ms = {len(cam) / (ms / 1e3):.2f} views/s ({card})")
+        vals = out.z if entry == "rasterize_gbuffer" else out.pos
+        if not (fg > len(cam) * 200_000 and torch.isfinite(vals[out.mask]).all()):
+            raise AssertionError(f"workload 1 with {backend}: empty or "
+                                 "non-finite output")
     return launches
 
 
@@ -1015,10 +1020,10 @@ def classic_phase(pt, gc, zc, rk, dev, card) -> int:
             raise AssertionError(f"{name} did not launch K1")
         k1 += counts["gbuffer_tiles"]
         log("classic", f"{name}: launches {counts}")
-    rast = outs["rasterize"][[0, 3]].cpu()
-    rast_db, db = (t[[0, 3]].cpu() for t in outs["rasterize_db"])
-    ref = pt.rasterize(pos[[0, 3]].cpu(), tri.cpu(), (512, 512), device="cpu")
-    _, ref_db = pt.rasterize_db(pos[[0, 3]].cpu(), tri.cpu(), (512, 512),
+    rast = outs["rasterize"][CPU_VIEWS].cpu()
+    rast_db, db = (t[CPU_VIEWS].cpu() for t in outs["rasterize_db"])
+    ref = pt.rasterize(pos[CPU_VIEWS].cpu(), tri.cpu(), (512, 512), device="cpu")
+    _, ref_db = pt.rasterize_db(pos[CPU_VIEWS].cpu(), tri.cpu(), (512, 512),
                                 device="cpu")
     fg = int((ref[..., 3] > 0).sum())
     same = rast[..., 3] == ref[..., 3]
@@ -1027,17 +1032,17 @@ def classic_phase(pt, gc, zc, rk, dev, card) -> int:
     db_err = float((db - ref_db)[same].abs().max())
     both_equal = bool(torch.equal(rast, rast_db))
     ms = cuda_ms(lambda: pt.rasterize(pos, tri, (512, 512), device=dev), 10)
-    log("classic", f"vs the port on the CPU (views 0, 3): tri_id diff {id_diff} "
+    log("classic", f"vs the port on the CPU (view 0): tri_id diff {id_diff} "
         f"of {fg}, rast max abs {uvz_err}, rast_db max abs {db_err}; "
         f"rasterize_db's rast equals rasterize's: {both_equal}; rasterize "
         f"{ms:.4f} ms = {len(cam) / (ms / 1e3):.2f} views/s ({card})")
     if not (id_diff <= 1e-4 * fg and uvz_err < 5e-4 and db_err < 5e-4
-            and both_equal and fg > 100_000):
+            and both_equal and fg > 50_000):
         raise AssertionError("classic rasterize disagrees with the CPU")
     return k1
 
 
-def flat_backends_phase(pt, gb, gc, zc, rk, dev, card, head_cfg) -> dict:
+def flat_backends_phase(pt, gb, gc, zc, rk, dev, card, head_cfg, early) -> dict:
     """The headline heightfield (6 views at 512², normals, the headline's
     budgets) through ``rasterize_gbuffer`` with ``vpu_pallas`` and
     ``fused_xla``: at 10,082 triangles the JAX package runs these on tile
@@ -1045,8 +1050,9 @@ def flat_backends_phase(pt, gb, gc, zc, rk, dev, card, head_cfg) -> dict:
     ``_zattr_tile_xla`` (K2's contract), and so does the port. Each run's
     launch counts (K1 none), K3 / K2 on those rows bitwise against their
     plain versions, the card against the port's CPU run of view 0 (mask and
-    tri_id within 1e-4 of the foreground, z 1e-5, attributes 5e-4) and
-    views/s. Returns the launches."""
+    tri_id within 1e-4 of the foreground, z 1e-5, attributes 5e-4; the
+    CPU's run is flat_cpu_ref's, in the early CpuReferences) and views/s.
+    Returns the launches."""
     mesh, cam = headline_scene(pt, dev)
     mesh = pt.with_normals(mesh)
     pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
@@ -1071,8 +1077,7 @@ def flat_backends_phase(pt, gb, gc, zc, rk, dev, card, head_cfg) -> dict:
         err = bitwise_against_plain(
             kernel, getattr(zc, kernel)(*inputs, *dims),
             getattr(zc, f"{kernel}_plain")(*inputs, *dims))
-        ref = pt.rasterize_gbuffer(pos[:1].cpu(), tri.cpu(), nrm.cpu(),
-                                   (512, 512), cfg, device="cpu")
+        ref = early.result("flat")[backend]
         fg = int(ref.mask.sum())
         both = out.mask[:1].cpu() & ref.mask
         diffs = {"mask": int((out.mask[:1].cpu() != ref.mask).sum()),
@@ -1419,7 +1424,7 @@ def probes_phase() -> dict:
 
 def texture_phase(pt, gb, gc, zc, rk, dev, card) -> int:
     """Config4 three ways through ``render`` (attr, depth, normals at 4 x
-    1024²): texture_pack_mode none against the port's CPU run (mask and
+    1024²): texture_pack_mode none against the port's CPU run of view 0 (mask and
     tri_id within 1e-4 of the foreground, attr / pos / normal within 1e-4 /
     1e-4 / 5e-4), u8 bit-identical to none on this k/255 texture, and the
     split-UV mesh through render's own seam cut equal to the explicitly
@@ -1468,23 +1473,20 @@ def texture_phase(pt, gb, gc, zc, rk, dev, card) -> int:
         f"render's seam cut equal to the unified mesh in every channel (attr "
         f"vs the unsplit mesh: max abs {split_vs_none})")
 
-    cpu_mesh, cpu_cam = mesh.to("cpu"), cam.to("cpu")
+    cpu_mesh, cpu_cam = mesh.to("cpu"), cam[CPU_VIEWS].to("cpu")
     ref = pt.render(cpu_mesh, cpu_cam, 1024, 1024, raster_config=cfg,
                     texture_pack_mode="none", device="cpu", **kw)
-    ids = pt.rasterize_gbuffer(pos, mesh.t_pos_idx, None, (1024, 1024), cfg,
-                               device=dev).tri_id.cpu()
-    ref_ids = pt.rasterize_gbuffer(pos.cpu(), cpu_mesh.t_pos_idx, None,
-                                   (1024, 1024), cfg, device="cpu").tri_id
-    fg = int(ref.mask.sum())
-    mask_diff = int((none.mask.cpu() != ref.mask).sum())
+    ids = pt.rasterize_gbuffer(pos[CPU_VIEWS], mesh.t_pos_idx, None,
+                               (1024, 1024), cfg, device=dev).tri_id.cpu()
+    ref_ids = pt.rasterize_gbuffer(pos[CPU_VIEWS].cpu(), cpu_mesh.t_pos_idx,
+                                   None, (1024, 1024), cfg, device="cpu").tri_id
+    mask_diff, fg, errs = card_vs_cpu(none, ref, CPU_VIEWS,
+                                      ("attr", "pos", "normal"))
     id_diff = int((ids != ref_ids).sum())
-    both = none.mask.cpu() & ref.mask
-    errs = {f: float((getattr(none, f).cpu() - getattr(ref, f))[both].abs().max())
-            for f in ("attr", "pos", "normal")}
-    log("texture", f"config4 none vs the port on the CPU (4 views): mask diff "
+    log("texture", f"config4 none vs the port on the CPU (view 0): mask diff "
         f"{mask_diff}, tri_id diff {id_diff} of {fg}, {errs}")
     if not (mask_diff <= 1e-4 * fg and id_diff <= 1e-4 * fg and errs["attr"] < 1e-4
-            and errs["pos"] < 1e-4 and errs["normal"] < 5e-4 and fg > 1_000_000
+            and errs["pos"] < 1e-4 and errs["normal"] < 5e-4 and fg > 250_000
             and torch.isfinite(none.attr).all()):
         raise AssertionError("config4 on the card disagrees with the CPU")
 
@@ -1514,22 +1516,27 @@ def texture_phase(pt, gb, gc, zc, rk, dev, card) -> int:
     return k1
 
 
-def attr_phase(pt, gc, zc, rk, dev, card) -> dict:
+def attr_variants(pt):
+    """[attr]'s renders: (name, kernel, render keywords)."""
+    return (("fused+tangent", "zattr_tiles", dict(render_tangent=True)),
+            ("classic+antialias", "raster_zid_tiles",
+             dict(raster_config=pt.RasterizerConfig(backend="pallas"),
+                  render_tangent=True, antialias_attr=True)),
+            ("auto_mip", "zattr_tiles", dict(texture_filter_mode="auto_mip")))
+
+
+def attr_phase(pt, gc, zc, rk, dev, card, early) -> dict:
     """Workload 1 textured with bench.py:587's 512² checker, 6 views at 512²
     through ``render``: the fused branch with tangents (K2), the classic
     branch (backend pallas: K4, then interpolate of t_tex_idx) with
     antialias_attr, and auto_mip; each against the port's CPU run of view
     0 (mask within 1e-4 of the foreground, attr 1e-4, pos 1e-4,
-    normal and tangent 5e-4). Returns the launches per kernel."""
+    normal and tangent 5e-4; the CPU's runs are attr_cpu_ref's, in the
+    early CpuReferences). Returns the launches per kernel."""
     mesh, cam = sphere_scene(pt, dev, texture=checker(512, 32))
-    cpu_mesh, cpu_cam = mesh.to("cpu"), cam[CPU_VIEWS].to("cpu")
+    refs = early.result("attr")
     launches = {}
-    for name, kernel, kw in (
-            ("fused+tangent", "zattr_tiles", dict(render_tangent=True)),
-            ("classic+antialias", "raster_zid_tiles",
-             dict(raster_config=pt.RasterizerConfig(backend="pallas"),
-                  render_tangent=True, antialias_attr=True)),
-            ("auto_mip", "zattr_tiles", dict(texture_filter_mode="auto_mip"))):
+    for name, kernel, kw in attr_variants(pt):
         def run(kw=kw):
             return pt.render(mesh, cam, 512, 512, device=dev, **kw)
         reset_counts(gc, zc, rk)
@@ -1538,7 +1545,7 @@ def attr_phase(pt, gc, zc, rk, dev, card) -> dict:
         if counts[kernel] < 1:
             raise AssertionError(f"[attr] {name} did not launch {kernel}")
         launches[kernel] = launches.get(kernel, 0) + counts[kernel]
-        ref = pt.render(cpu_mesh, cpu_cam, 512, 512, device="cpu", **kw)
+        ref = refs[name]
         fg = int(ref.mask.sum())
         mask = out.mask[CPU_VIEWS].cpu()
         mask_diff = int((mask != ref.mask).sum())
@@ -1672,7 +1679,7 @@ def town_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     with colour (the strip atlas, attr_background 0.7), depth and normals,
     auto_fast_config over the fast config with backface_cull -1 (K1). The
     load's seconds, the budgets, views/s and K1's launches per render, the
-    card against the port's CPU render, and the cull property of
+    card against the port's CPU render of frames 0 and 4, the cull property of
     tests/test_town_fixture.py:86-125 on the card, and K1 on the render's
     inputs (576 = 4.5 tiles of 128: partial tiles) against its plain
     version. Returns the launches per kernel."""
@@ -1728,26 +1735,27 @@ def town_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
                   um.t_pos_idx, torch.cat([v_nrm, um.v_tex], -1), h, w, cfg,
                   pos_world=um.v_pos, mvp=cam.mvp_mtx)
 
-    ref = pt.render(mesh.to("cpu"), cam.to("cpu"), h, w, device="cpu", **kw)
-    views = list(range(len(cam)))
+    views = TOWN_CPU_FRAMES
+    ref = pt.render(mesh.to("cpu"), cam[views].to("cpu"), h, w, device="cpu",
+                    **kw)
     mask_diff, fg, errs = card_vs_cpu(out, ref, views,
                                       ("attr", "pos", "depth", "normal"))
-    g_gpu = pt.rasterize_gbuffer(pos, mesh.t_pos_idx, None, (h, w), cfg,
+    g_gpu = pt.rasterize_gbuffer(pos[views], mesh.t_pos_idx, None, (h, w), cfg,
                                  device=dev)
-    g_cpu = pt.rasterize_gbuffer(pos.cpu(), mesh.t_pos_idx.cpu(), None, (h, w),
-                                 cfg, device="cpu")
+    g_cpu = pt.rasterize_gbuffer(pos[views].cpu(), mesh.t_pos_idx.cpu(), None,
+                                 (h, w), cfg, device="cpu")
     id_diff = int((g_gpu.tri_id.cpu() != g_cpu.tri_id).sum())
-    both = out.mask.cpu() & ref.mask
-    pos_bits = int((out.pos.cpu() != ref.pos)[both].any(-1).sum())
+    both = out.mask[views].cpu() & ref.mask
+    pos_bits = int((out.pos[views].cpu() != ref.pos)[both].any(-1).sum())
     extent = float(ref.pos[ref.mask].abs().max())
-    log("town", f"vs the port on the CPU (8 frames): mask diff {mask_diff}, "
+    log("town", f"vs the port on the CPU (frames {views}): mask diff {mask_diff}, "
         f"tri_id diff {id_diff} of {fg} foreground, max errors {errs}; "
         f"positions differ at {pos_bits} of {int(both.sum())} pixels both "
         f"cover (world extent {extent:.3f})")
     if not (mask_diff <= 1e-4 * fg and id_diff <= 1e-4 * fg
             and errs["attr"] < 1e-4 and errs["pos"] < 1e-4
             and errs["depth"] < 1e-4 and errs["normal"] < 5e-4
-            and fg > 0.15 * len(cam) * h * w):
+            and fg > 0.15 * len(views) * h * w):
         raise AssertionError("town: the card disagrees with the CPU")
 
     outs = {}
@@ -1968,7 +1976,7 @@ def lod_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     port's meshproc), select(target_px_per_tri=2.0) for the 6 views at
     512², and the selected level's render through auto_fast_config (K1):
     the build's seconds, the faces per level, views/s, and the level's
-    render against the port's CPU render (views 0 and 3), K1 on its inputs
+    render against the port's CPU render (view 0), K1 on its inputs
     against its plain version. The chain is the host's: a digest of every
     level, level 1 against the port's library called again on the same
     input in this run (bit for bit), and level 1 from the library built
@@ -2027,15 +2035,15 @@ def lod_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     k1_path_check("lod", f"level {level}", gb, gc, pos, lod.t_pos_idx,
                   lod.v_nrm, 512, 512, cfg, pos_world=lod.v_pos,
                   mvp=cam.mvp_mtx)
-    ref = pt.render(lod.to("cpu"), cam[[0, 3]].to("cpu"), 512, 512,
+    ref = pt.render(lod.to("cpu"), cam[CPU_VIEWS].to("cpu"), 512, 512,
                     device="cpu", **kw)
-    mask_diff, fg, errs = card_vs_cpu(out, ref, [0, 3], ("pos", "normal"))
+    mask_diff, fg, errs = card_vs_cpu(out, ref, CPU_VIEWS, ("pos", "normal"))
     log("lod", f"level {level}: render {ms:.4f} ms = "
         f"{len(cam) / (ms / 1e3):.2f} views/s ({card}), K1 launches per render "
-        f"{launches}; vs the port on the CPU (views 0, 3): mask diff "
+        f"{launches}; vs the port on the CPU (view 0): mask diff "
         f"{mask_diff} of {fg}, max errors {errs}")
     if not (level > 0 and mask_diff <= 1e-4 * fg and errs["pos"] < 1e-4
-            and errs["normal"] < 5e-4 and fg > 100_000):
+            and errs["normal"] < 5e-4 and fg > 50_000):
         raise AssertionError("lod: the card disagrees with the CPU")
     return {"gbuffer_tiles": launches}
 
@@ -2094,15 +2102,18 @@ def subtile_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
 
 
 BAKE_UV, BAKE_RES = 2048, 512
+# Poisson sweeps the CPU runs for [bake_full]'s comparison.
+BAKE_FULL_CPU_SWEEPS = 40
 
 
+@functools.lru_cache(maxsize=None)
 def bake_scene(pt, dev, texture_value=0.0):
     """bench.py:898 / :963's bake at full width: uv_sphere_mesh(65, 129)
     (16,384 triangles) with a flat 2048² texture, 6 views at 512² in
     workload 1's orbit, and the view images: renders of the same mesh with
     a seeded random texture, so the bake has texels to move. The config is
     sized for the atlas and the views as bench.py:941 _projection_auto_cfg
-    sizes it."""
+    sizes it. Made once per texture value: the phases only read it."""
     verts, faces, uv = pt.uv_sphere_mesh(65, 129)
     mesh = pt.mesh_from_arrays(
         verts, faces, v_tex=uv, t_tex_idx=faces,
@@ -2141,9 +2152,10 @@ def bake_pieces(pu, mesh, cam, views, cfg, dev, **blend_kw):
 
 
 def stage_split(fn) -> dict:
-    """One torch.profiler trace of one call of ``fn``: by ``bake::`` range,
-    the device ms of the CUDA kernels that ran inside the range's span on
-    the device (one stream, so the stages' spans do not overlap)."""
+    """One torch.profiler trace of one call of ``fn``: by ``bake::`` range
+    name, the device ms of the CUDA kernels that ran inside the spans of
+    the ranges of that name on the device (one stream, so the stages'
+    spans do not overlap)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2158,7 +2170,8 @@ def stage_split(fn) -> dict:
     for span in events:
         if span.name.startswith("bake::") and span not in kernels:
             lo, hi = span.time_range.start, span.time_range.end
-            split[span.name[len("bake::"):]] = sum(
+            name = span.name[len("bake::"):]
+            split[name] = split.get(name, 0.0) + sum(
                 k.time_range.elapsed_us() for k in kernels
                 if lo <= k.time_range.start < hi) / 1e3
     return split
@@ -2171,12 +2184,9 @@ def bake_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     trace, CUDA kernels per bake and the device's idle share, K1's launches
     and its time at the 2048² atlas (bitwise against its plain version) —
     then camera_projection end to end with its defaults but
-    poisson_blending=False, against the port's CPU run of the same call:
-    uv_mask equal and uv_pos within 1e-5, baked-mask flips at most 1e-4 of
-    the chart's texels, texels within 1e-4 where both are valid. Returns
-    the launches per kernel."""
-    from unittest import mock
-
+    poisson_blending=False on the card, its seconds. (Its comparison with
+    the port's CPU run, with the same limits, is [warp]'s, on the same
+    scene with the warp in front.) Returns the launches per kernel."""
     from worldrenderer_tpu_torch.baking import projection as pp
     from worldrenderer_tpu_torch.baking import uv as pu
 
@@ -2211,41 +2221,18 @@ def bake_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
         f"({100 * bound / atlas_ms:.0f}%)")
 
     kw = dict(uv_size=BAKE_UV, poisson_blending=False, raster_config=cfg)
-    pres = []
-    real = pp.uv_precompute
-
-    def keep_pre(*a, **k):
-        pres.append(real(*a, **k))
-        return pres[-1]
-
     reset_counts(gc, zc, rk)
-    with mock.patch.object(pp, "uv_precompute", keep_pre):
-        out = pp.camera_projection(views, mesh, cam=cam, device=dev, **kw)
+    out = pp.camera_projection(views, mesh, cam=cam, device=dev, **kw)
     launches = read_counts(gc, zc, rk)["gbuffer_tiles"]
     e2e_ms = cuda_ms(lambda: pp.camera_projection(views, mesh, cam=cam,
                                                   device=dev, **kw), 3)
-    t0 = time.perf_counter()
-    with mock.patch.object(pp, "uv_precompute", keep_pre):
-        ref = pp.camera_projection(views.cpu(), mesh.to("cpu"),
-                                   cam=cam.to("cpu"), device="cpu", **kw)
-    cpu_s = time.perf_counter() - t0
-    pre, pre_cpu = pres
-    chart = pre_cpu.uv_mask
-    mask_eq = torch.equal(pre.uv_mask.cpu(), chart)
-    pos_err = float((pre.uv_pos.cpu() - pre_cpu.uv_pos)[chart].abs().max())
-    flips = int((out.uv_proj_mask.cpu() != ref.uv_proj_mask).sum())
-    both = out.uv_proj_mask.cpu() & ref.uv_proj_mask
-    tex_err = float((out.uv_proj.cpu() - ref.uv_proj)[both].abs().max())
+    baked = int(out.uv_proj_mask.sum())
     log("bake", f"camera_projection (poisson_blending=False): "
-        f"{e2e_ms / 1e3:.4f} s on the card, {cpu_s:.1f} s on the CPU, K1 "
-        f"launches {launches}; card vs CPU: uv_mask equal {mask_eq}, uv_pos "
-        f"max err {pos_err}, baked-mask flips {flips} of {int(chart.sum())} "
-        f"chart texels ({int(ref.uv_proj_mask.sum())} baked), texel max err "
-        f"{tex_err} where both are valid")
-    if not (mask_eq and pos_err <= 1e-5 and flips <= 1e-4 * int(chart.sum())
-            and tex_err <= 1e-4 and both.float().mean() > 0.2
+        f"{e2e_ms / 1e3:.4f} s on the card, K1 launches {launches}, "
+        f"{baked} texels baked")
+    if not (launches == 2 and baked > 0.2 * BAKE_UV ** 2
             and torch.isfinite(out.uv_proj).all()):
-        raise AssertionError("bake: the card disagrees with the CPU")
+        raise AssertionError("bake: camera_projection on the card failed")
     return {"gbuffer_tiles": counts["gbuffer_tiles"] + launches}
 
 
@@ -2255,8 +2242,8 @@ def bake_full_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     seam blending and gutter padding, seconds per bake; the Poisson loop's
     ms and CUDA kernels per sweep (the difference of 1,000 and 0 sweeps,
     and of two traces); then uv_blend_post on the card's own blend sums,
-    on the card and on the CPU, at 1,000 sweeps if the CPU's run fits in
-    60 s, else at the most sweeps that do: within 1e-4 where the solve
+    on the card and on the CPU, at BAKE_FULL_CPU_SWEEPS sweeps: within
+    1e-4 where the solve
     reaches (the blend mask dilated by the padding radius) and bitwise
     elsewhere. Returns the launches per kernel."""
     from worldrenderer_tpu_torch.baking import uv as pu
@@ -2301,10 +2288,7 @@ def bake_full_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     cpu_pre = pre._replace(uv_attr=pre.uv_attr.cpu(), uv_mask=pre.uv_mask.cpu(),
                            uv_pos=pre.uv_pos.cpu())
     cpu_args = (cpu_pre, sums.uv_attr_blend.cpu(), mask.cpu())
-    t0 = time.perf_counter()
-    po.poisson_blend(*cpu_args[1:], cpu_pre.uv_attr, num_iters=10, device="cpu")
-    per_s = (time.perf_counter() - t0) / 10
-    n = min(1000, int(57.0 / per_s))  # the padding's seconds beside it
+    n = BAKE_FULL_CPU_SWEEPS
     t0 = time.perf_counter()
     ref = pu.uv_blend_post(*cpu_args, pb_num_iters=n, device="cpu", **post)
     cpu_s = time.perf_counter() - t0
@@ -2316,11 +2300,601 @@ def bake_full_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     log("bake_full", f"uv_blend_post card vs CPU at {n} sweeps (the CPU "
         f"{cpu_s:.1f} s): max err {err} where the solve reaches, {outside} "
         f"texels with other bits elsewhere, {bits_differ(got, ref)} in all")
-    if not (err <= 1e-4 and outside == 0 and torch.isfinite(got).all()
-            and n >= 100):
+    if not (err <= 1e-4 and outside == 0 and torch.isfinite(got).all()):
         raise AssertionError("bake_full: the card disagrees with the CPU")
     return {"gbuffer_tiles": counts["gbuffer_tiles"]}
 
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| of two tensors, on the host."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+DIFF_RES, FIT_RES = 512, 1024
+
+
+def diff_scenes(pt, device):
+    """[diff]'s rasterize_diff scenes: (name, mesh, cameras, uv, config,
+    kernel) for workload 1 (DEFAULT_CONFIG: K4) and the headline with the
+    grid's planar (x, y) as uv (auto_fast_config: K1 in uv mode)."""
+    sph, scam = sphere_scene(pt, device)
+    head, hcam = headline_scene(pt, device)
+    hpos = pt.get_clip_space_position(head.v_pos, hcam.mvp_mtx)
+    hcfg = pt.auto_fast_config(hpos, head.t_pos_idx, (DIFF_RES, DIFF_RES))
+    hxy = head.v_pos[:, :2]
+    huv = (hxy - hxy.min(0).values) / (hxy.max(0).values - hxy.min(0).values)
+    return [("workload 1", sph, scam, sph.v_tex, pt.DEFAULT_CONFIG,
+             "raster_zid_tiles"),
+            ("headline", head, hcam, huv, hcfg, "gbuffer_tiles")]
+
+
+def diff_loss(pt, p, tri, uv, cfg, device):
+    """tests/test_differentiability.py:126's loss at DIFF_RES: the
+    interpolated uv times a smooth field, through rasterize_diff."""
+    ramp = torch.linspace(0, 1, DIFF_RES, device=device)[None, :, None, None]
+    wfield = ramp * torch.linspace(1, 2, DIFF_RES, device=device)[None, None, :, None]
+    rast = pt.rasterize_diff(p, tri, (DIFF_RES, DIFF_RES), cfg, device=device)
+    return (pt.interpolate(uv[None], rast, tri, device=device) * wfield).sum() / 100.0
+
+
+def fit_scene(pt, device, views=None):
+    """[diff]'s texture fit: config4 (bench.py:684) with its config, the
+    render keywords (colour, depth, normals: K1 at n_vals 6) and the target,
+    half the config4 render of ``views`` (all when None)."""
+    mesh, cam = config4_scene(pt, device)
+    cfg = config4_cfg(pt, mesh, cam)
+    cam = cam if views is None else cam[views]
+    kw = dict(render_attr=True, render_depth=True, render_normal=True,
+              raster_config=cfg, device=device)
+    target = pt.render(mesh, cam, FIT_RES, FIT_RES, **kw).attr * 0.5
+    return mesh, cam, cfg, kw, target
+
+
+def fit_loss(pt, mesh, cam, target, tex, kw):
+    out = pt.render(mesh, cam, FIT_RES, FIT_RES, texture_override=tex, **kw).attr
+    return ((out - target) ** 2).mean()
+
+
+def diff_cpu_ref(pt) -> dict:
+    """[diff]'s CPU runs: view 0's clip-position gradient of each
+    diff_scenes scene and view 0's texture gradient of the fit, with the
+    configs they were sized to."""
+    out = {}
+    for name, mesh, cam, uv, cfg, _ in diff_scenes(pt, "cpu"):
+        p = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)[:1]
+        p.requires_grad_(True)
+        t0 = time.perf_counter()
+        diff_loss(pt, p, mesh.t_pos_idx, uv, cfg, "cpu").backward()
+        out[name] = dict(grad=p.grad, cfg=cfg, seconds=time.perf_counter() - t0)
+    mesh, cam, cfg, kw, target = fit_scene(pt, "cpu", CPU_VIEWS)
+    tex = torch.full_like(mesh.texture, 0.5).requires_grad_(True)
+    t0 = time.perf_counter()
+    fit_loss(pt, mesh, cam, target, tex, kw).backward()
+    out["config4"] = dict(grad=tex.grad, cfg=cfg, seconds=time.perf_counter() - t0)
+    return out
+
+
+def diff_phase(pt, gb, gc, zc, rk, dev, card, refs) -> dict:
+    """Slice 10's gradients at full width. ``rasterize_diff`` on workload 1
+    (3,968 triangles, 6 views at 512²: K4) and on the headline (10,082
+    triangles under auto_fast_config, its budgets guarded as
+    bench.py:452-459 guards them, doubled budgets giving the same rast: K1
+    in uv mode), each with tests/test_differentiability.py:126's loss
+    (diff_loss): the primal bitwise equal to ``rasterize`` on the card, the
+    clip-position gradient of view 0 within 1e-4 of its largest |g| of the
+    port's CPU gradient; then a texture-fit step on config4
+    (bench.py:684, 4 views at 1024², K1 at n_vals 6), the texture gradient
+    of view 0 within 1e-5 of its largest |g| of the CPU's. Each with the
+    forward and forward + backward ms (CUDA events after warm-up) and CUDA
+    kernels per step from one trace. The CPU runs are diff_cpu_ref's, in
+    the early CpuReferences. Returns the launches per kernel."""
+    launches = {"gbuffer_tiles": 0, "raster_zid_tiles": 0}
+    scenes = diff_scenes(pt, dev)
+    ref = refs.result("diff")
+    for name, mesh, cam, uv, cfg, kernel in scenes:
+        pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+        tri = mesh.t_pos_idx
+        if kernel == "gbuffer_tiles":
+            # bench.py:452-459's guard: doubled budgets give the same rast.
+            cfg2 = cfg._replace(
+                max_tris_per_tile=2 * cfg.max_tris_per_tile,
+                bin_flat_cap_factor=2 * cfg.bin_flat_cap_factor,
+                bin_huge=2 * cfg.bin_huge, bin_med=2 * cfg.bin_med)
+            a, b = (pt.rasterize(pos, tri, (DIFF_RES, DIFF_RES), c, device=dev)
+                    for c in (cfg, cfg2))
+            if not (torch.equal(a[..., 3], b[..., 3])
+                    and float((a[..., 2] - b[..., 2]).abs().max()) < 1e-6):
+                raise AssertionError(f"diff {name}: the budgets truncate "
+                                     "triangle lists")
+
+        def loss(p, tri=tri, uv=uv, cfg=cfg):
+            return diff_loss(pt, p, tri, uv, cfg, dev)
+
+        p = pos.clone().requires_grad_(True)
+        reset_counts(gc, zc, rk)
+        loss(p).backward()
+        counts = read_counts(gc, zc, rk)
+        if counts[kernel] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"diff {name}: launches {counts}")
+        launches[kernel] += counts[kernel]
+        same = torch.equal(
+            pt.rasterize_diff(p, tri, (DIFF_RES, DIFF_RES), cfg, device=dev).detach(),
+            pt.rasterize(pos, tri, (DIFF_RES, DIFF_RES), cfg, device=dev))
+        fwd_ms = cuda_ms(lambda: loss(p), 10)
+        step_ms = cuda_ms(lambda: loss(p).backward(), 10)
+        n_kernels = profile_ms(lambda: loss(p).backward(), 1)[2]
+        p0 = pos[:1].clone().requires_grad_(True)
+        loss(p0).backward()
+        cpu = ref[name]
+        err = rel_err(p0.grad, cpu["grad"])
+        log("diff", f"rasterize_diff, {name} ({mesh.num_faces} triangles, 6 "
+            f"views at {DIFF_RES}², {kernel} launches {counts[kernel]}): primal "
+            f"bitwise equal to rasterize {same}; forward {fwd_ms:.4f} ms, "
+            f"forward + backward {step_ms:.4f} ms, {n_kernels:.0f} CUDA "
+            f"kernels per step ({card}); view 0's clip-position gradient vs "
+            f"the CPU ({cpu['seconds']:.1f} s): max err {err:.3e} of its "
+            f"largest |g|")
+        if not (same and cfg == cpu["cfg"] and err <= 1e-4
+                and torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0):
+            raise AssertionError(f"diff {name}: the card disagrees with the CPU")
+
+    mesh, cam, cfg, kw, target = fit_scene(pt, dev)
+    tex = torch.full_like(mesh.texture, 0.5).requires_grad_(True)
+    reset_counts(gc, zc, rk)
+    fit_loss(pt, mesh, cam, target, tex, kw).backward()
+    counts = read_counts(gc, zc, rk)
+    if counts["gbuffer_tiles"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"diff config4 fit: launches {counts}")
+    launches["gbuffer_tiles"] += 1
+    fwd_ms = cuda_ms(lambda: fit_loss(pt, mesh, cam, target, tex, kw), 3)
+    step_ms = cuda_ms(lambda: fit_loss(pt, mesh, cam, target, tex, kw).backward(), 2)
+    n_kernels = profile_ms(
+        lambda: fit_loss(pt, mesh, cam, target, tex, kw).backward(), 1)[2]
+    t0 = tex.detach().clone().requires_grad_(True)
+    fit_loss(pt, mesh, cam[CPU_VIEWS], target[CPU_VIEWS], t0, kw).backward()
+    cpu = ref["config4"]
+    err = rel_err(t0.grad, cpu["grad"])
+    log("diff", f"config4 texture-fit step (4 views at {FIT_RES}², K1 launches "
+        f"{counts['gbuffer_tiles']}): forward {fwd_ms:.4f} ms, forward + "
+        f"backward {step_ms:.4f} ms, {n_kernels:.0f} CUDA kernels per step "
+        f"({card}); view 0's texture gradient vs the CPU "
+        f"({cpu['seconds']:.1f} s): max err {err:.3e} of its largest |g|")
+    if not (cfg == cpu["cfg"] and err <= 1e-5 and t0.grad.abs().sum() > 0
+            and torch.isfinite(tex.grad).all()):
+        raise AssertionError("diff config4: the card disagrees with the CPU")
+    return launches
+
+
+def smooth_texture(size):
+    """A (size, size, 3) texture of a few sine periods per axis: smooth at
+    the warp's 64² and 128² stages, so the fit's loss is smooth too (on the
+    bake's per-texel noise the fit is chaotic, and round-off sends the
+    card and the CPU to other optima)."""
+    t = torch.linspace(0.0, 2.0 * np.pi, size)
+    v, u = torch.meshgrid(t, t, indexing="ij")
+    return torch.stack([0.5 + 0.4 * torch.sin(3 * u + 2 * v),
+                        0.5 + 0.4 * torch.cos(2 * u - 3 * v),
+                        0.5 + 0.4 * torch.sin(4 * u) * torch.cos(4 * v)], -1)
+
+
+PAINT_SCORE, PAINT_INPAINT = 256, 1024
+# The round held against the CPU: the sizes the CPU fits in time, on tiles
+# of 8x32 (the plain K1 scans each tile's chunks over all its pixels, and
+# the score views' triangles are about a pixel each).
+PAINT_CPU_SCORE, PAINT_CPU_INPAINT = 128, 512
+PAINT_CPU_TILES = dict(tile_h=8, tile_w=32)
+PAINT_SEED = 5
+CPU_REF_DIR = Path(__file__).resolve().parent / "_cpu_refs"
+
+
+def headline_cfg(pt, mesh, cam, size=512):
+    """The main path's config: auto_fast_config over the headline."""
+    pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+    return pt.auto_fast_config(pos, mesh.t_pos_idx, (size, size))
+
+
+def main_cpu_ref(pt) -> dict:
+    """[main]'s CPU run: the headline render (6 views) and its triangle
+    ids, with the config they were sized to."""
+    t0 = time.perf_counter()
+    mesh, cam = headline_scene(pt, "cpu")
+    cfg = headline_cfg(pt, mesh, cam)
+    ref = pt.render(mesh, cam, 512, 512, render_attr=False, render_depth=False,
+                    render_normal=True, raster_config=cfg, device="cpu")
+    pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+    ids = pt.rasterize_gbuffer(pos, mesh.t_pos_idx, None, (512, 512), cfg,
+                               device="cpu").tri_id
+    return dict(render=ref, tri_id=ids, cfg=cfg,
+                seconds=time.perf_counter() - t0)
+
+
+def flat_cpu_ref(pt) -> dict:
+    """[flat]'s CPU runs: view 0 of the headline through rasterize_gbuffer
+    with vpu_pallas and fused_xla."""
+    mesh, cam = headline_scene(pt, "cpu")
+    cfg = headline_cfg(pt, mesh, cam)
+    mesh = pt.with_normals(mesh)
+    pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)[CPU_VIEWS]
+    return {b: pt.rasterize_gbuffer(pos, mesh.t_pos_idx, mesh.v_nrm, (512, 512),
+                                    cfg._replace(backend=b), device="cpu")
+            for b in ("vpu_pallas", "fused_xla")}
+
+
+def attr_cpu_ref(pt) -> dict:
+    """[attr]'s CPU runs: view 0 of each of attr_variants."""
+    mesh, cam = sphere_scene(pt, "cpu", texture=checker(512, 32))
+    return {name: pt.render(mesh, cam[CPU_VIEWS], 512, 512, device="cpu", **kw)
+            for name, _, kw in attr_variants(pt)}
+
+
+def warp_cpu_ref(pt, src, tgt, mesh, cam, kw) -> dict:
+    """[warp]'s CPU run: compute_warp_field, then camera_projection with
+    ``kw`` (warp_images=True), its atlas kept."""
+    from unittest import mock
+
+    from worldrenderer_tpu_torch.baking import projection as pp
+    from worldrenderer_tpu_torch.baking import warp as pw
+
+    t0 = time.perf_counter()
+    warped = pw.compute_warp_field(src, tgt, device="cpu")
+    fit_s = time.perf_counter() - t0
+    pres = []
+    real = pp.uv_precompute
+
+    def keep_pre(*a, **k):
+        pres.append(real(*a, **k))
+        return pres[-1]
+
+    t0 = time.perf_counter()
+    with mock.patch.object(pp, "uv_precompute", keep_pre):
+        out = pp.camera_projection(src, mesh, cam=cam, device="cpu", **kw)
+    return dict(warped=warped, fit_s=fit_s, bake_s=time.perf_counter() - t0,
+                uv_proj=out.uv_proj, uv_proj_mask=out.uv_proj_mask,
+                uv_mask=pres[0].uv_mask, uv_pos=pres[0].uv_pos)
+
+
+def paint_cpu_ref(pt, mesh, tex, hole, cfg, kw) -> dict:
+    """[paint]'s CPU round."""
+    from worldrenderer_tpu_torch.baking import smart_paint as ps
+
+    painter = ps.SmartPainter(cfg)
+    t0 = time.perf_counter()
+    out, covered = painter(mesh, ps.default_inpaint_func, tex, hole,
+                           device="cpu",
+                           generator=torch.Generator().manual_seed(PAINT_SEED),
+                           **kw)
+    return dict(texture=out, covered=covered, seconds=time.perf_counter() - t0,
+                best_view=painter.history[0]["best_view"])
+
+
+CPU_REFS = {"main": main_cpu_ref, "flat": flat_cpu_ref, "attr": attr_cpu_ref,
+            "diff": diff_cpu_ref, "warp": warp_cpu_ref, "paint": paint_cpu_ref}
+
+
+def cpu_references(spec: str) -> int:
+    """``python3 chip_smoke.py --cpu-refs TAG:main,flat``: the named CPU
+    runs, in order, on the inputs in CPU_REF_DIR/TAG (none for the runs
+    that build their scenes themselves), each written there when done."""
+    import worldrenderer_tpu_torch as pt
+
+    tag, names = spec.split(":")
+    base = CPU_REF_DIR / tag
+    for name in names.split(","):
+        src = base / f"{name}.in.pt"
+        args = torch.load(src, weights_only=False) if src.exists() else {}
+        out = CPU_REFS[name](pt, **args)
+        tmp = base / f"{name}.tmp.pt"
+        torch.save(out, tmp)
+        tmp.replace(base / f"{name}.out.pt")
+    return 0
+
+
+class CpuReferences:
+    """CPU runs that phases hold the card against, in order, in a process
+    of their own at the lowest priority (nice 19): it takes the cores that
+    the card's host-bound phases (one launching thread) leave idle, and
+    yields them whenever this process computes on the CPU. ``jobs`` maps
+    a CPU_REFS name to its inputs (None: it builds its scene itself)."""
+
+    def __init__(self, tag: str, jobs: dict):
+        import shutil
+
+        self.dir = CPU_REF_DIR / tag
+        shutil.rmtree(self.dir, ignore_errors=True)
+        self.dir.mkdir(parents=True)
+        for name, args in jobs.items():
+            if args is not None:
+                torch.save(args, self.dir / f"{name}.in.pt")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--cpu-refs",
+             f"{tag}:{','.join(jobs)}"], preexec_fn=lambda: os.nice(19))
+
+    def result(self, name: str) -> dict:
+        out = self.dir / f"{name}.out.pt"
+        while not out.exists():
+            if self.proc.poll() is not None and not out.exists():
+                raise AssertionError(f"the CPU run {name} failed (exit "
+                                     f"{self.proc.returncode})")
+            time.sleep(0.1)
+        return torch.load(out, weights_only=False)
+
+    def close(self) -> None:
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        if CPU_REF_DIR.exists() and not any(CPU_REF_DIR.iterdir()):
+            CPU_REF_DIR.rmdir()
+
+
+class Slice10:
+    """The [warp] and [paint] phases' inputs, made on the card once, and
+    their CPU runs (CpuReferences), started with them.
+
+    [warp]: bake_scene's mesh with a smooth texture (smooth_texture), its
+    6 views at 512² as targets over a 0.5 background, and as sources the
+    same renders from cameras jittered by perturb_camera_position=0.01 (a
+    fixed generator), so the fit has a real offset to remove.
+
+    [paint]: bake_scene's mesh at the application's scale (load_mesh's
+    rescale to a half-extent of 0.5, which the anchor rig at distance 1.2
+    expects), camera_projection's texture of bake_scene's views at 2048²,
+    and as the inpaint mask the chart texels that no view covered (the
+    poles and beyond); the config sized by auto_fast_config over the atlas,
+    the anchor rig at 256² and at 1024² (any of its views may be a round's)
+    and the bake's views, each probe checked against its budgets; the
+    CPU-compared round's config the same on 8x32 tiles at its sizes."""
+
+    def __init__(self, pt, dev):
+        from worldrenderer_tpu_torch.baking import smart_paint as ps
+
+        t0 = time.perf_counter()
+        mesh, cam, views, cfg = bake_scene(pt, dev)
+        wmesh = mesh._replace(texture=smooth_texture(BAKE_UV).to(dev))
+        moved = pt.get_camera(c2w=cam.c2w.cpu(), fovy_deg=40.0, near=0.1,
+                              far=10.0, perturb_camera_position=0.01,
+                              generator=torch.Generator().manual_seed(1),
+                              device=dev)
+        kw = dict(render_depth=False, render_normal=False, attr_background=0.5,
+                  raster_config=cfg, device=dev)
+        self.warp = dict(
+            mesh=wmesh, cam=cam, cfg=cfg,
+            src=pt.render(wmesh, moved, BAKE_RES, BAKE_RES, **kw).attr,
+            tgt=pt.render(wmesh, cam, BAKE_RES, BAKE_RES, **kw).attr,
+            kw=dict(uv_size=BAKE_UV, poisson_blending=False, raster_config=cfg,
+                    warp_images=True, images_background=0.5))
+
+        pmesh = mesh._replace(v_pos=mesh.v_pos * 0.5)
+        rig = ps._make_view_selection_cams(device=dev)
+        rig_pos = pt.get_clip_space_position(pmesh.v_pos, rig.mvp_mtx)
+        atlas = (atlas_clip(mesh), mesh.t_tex_idx, (BAKE_UV, BAKE_UV))
+        view_probe = (pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx),
+                      mesh.t_pos_idx, (BAKE_RES, BAKE_RES))
+
+        def sized(base, score, inpaint):
+            probes = [(rig_pos, mesh.t_pos_idx, (score, score)),
+                      (rig_pos, mesh.t_pos_idx, (inpaint, inpaint)), view_probe]
+            c = pt.auto_fast_config(*atlas, base=base, extra_probes=probes)
+            for pos, tri, res in probes + [atlas]:
+                chk = c._replace(backface_cull=0) if pos is atlas[0] else c
+                stats = pt.binning_stats(pos, tri, res, chk)
+                if not stats["ok"]:
+                    raise AssertionError(f"paint: lossy budgets at {res}: {stats}")
+            return c
+
+        pcfg = sized(pt.FAST_TPU_CONFIG, PAINT_SCORE, PAINT_INPAINT)
+        small_cfg = sized(pt.FAST_TPU_CONFIG._replace(**PAINT_CPU_TILES),
+                          PAINT_CPU_SCORE, PAINT_CPU_INPAINT)
+        proj = pt.baking.camera_projection(views, mesh, cam=cam, uv_size=BAKE_UV,
+                                           poisson_blending=False,
+                                           raster_config=pcfg, device=dev)
+        chart = pt.baking.uv_precompute(mesh, BAKE_UV, BAKE_UV,
+                                        raster_config=pcfg, device=dev).uv_mask
+        self.paint = dict(
+            mesh=pmesh._replace(texture=proj.uv_proj), tex=proj.uv_proj,
+            hole=chart & ~proj.uv_proj_mask, chart=chart, cfg=pcfg,
+            small_cfg=small_cfg,
+            small_kw=dict(max_view_score_thresh=0.02, min_rounds=1,
+                          max_rounds=1, uv_padding_end=True,
+                          score_render_size=PAINT_CPU_SCORE,
+                          inpaint_render_size=PAINT_CPU_INPAINT))
+        self.setup_s = time.perf_counter() - t0
+        w, p = self.warp, self.paint
+        self.refs = CpuReferences("late", {
+            "warp": dict(src=w["src"].cpu(), tgt=w["tgt"].cpu(),
+                         mesh=w["mesh"].to("cpu"), cam=w["cam"].to("cpu"),
+                         kw=w["kw"]),
+            "paint": dict(mesh=p["mesh"].to("cpu"), tex=p["tex"].cpu(),
+                          hole=p["hole"].cpu(), cfg=small_cfg,
+                          kw=p["small_kw"]),
+        })
+
+
+def warp_phase(pt, gb, gc, zc, rk, dev, card, s10) -> dict:
+    """Slice 10's warp fit on the bake's scene (Slice10.warp: bake_scene's
+    16,384 triangles, 6 views at 512², uv 2048²): ``compute_warp_field``
+    at its defaults, the card's warped images against the CPU's within
+    1e-3, with the fit's seconds and CUDA kernels per Adam step; then
+    ``camera_projection(warp_images=True, images_background=0.5)`` end to
+    end, its seconds and K1's launches (the atlas, the view maps and the
+    warp's target render), against the CPU's: the atlas's uv_mask equal
+    and uv_pos within 1e-5, baked-mask flips at most 1e-4 of the chart's
+    texels, texels within 1e-4 where both are valid. Returns the launches
+    per kernel."""
+    from unittest import mock
+
+    from worldrenderer_tpu_torch.baking import projection as pp
+    from worldrenderer_tpu_torch.baking import warp as pw
+
+    w = s10.warp
+    src, tgt, mesh, cam, kw = w["src"], w["tgt"], w["mesh"], w["cam"], w["kw"]
+
+    def fit():
+        return pw.compute_warp_field(src, tgt, device=dev)
+
+    warped = fit()
+    fit_ms = cuda_ms(fit, 2)
+    steps = 2 * 20
+    per_step = (profile_ms(fit, 1)[2]
+                - profile_ms(lambda: pw.compute_warp_field(
+                    src, tgt, optim_step_per_res=0, device=dev), 1)[2]) / steps
+
+    pres = []
+    real = pp.uv_precompute
+
+    def keep_pre(*a, **k):
+        pres.append(real(*a, **k))
+        return pres[-1]
+
+    reset_counts(gc, zc, rk)
+    with mock.patch.object(pp, "uv_precompute", keep_pre):
+        out = pp.camera_projection(src, mesh, cam=cam, device=dev, **kw)
+    counts = read_counts(gc, zc, rk)
+    if counts["gbuffer_tiles"] != 3 or sum(counts.values()) != 3:
+        raise AssertionError(f"warp: camera_projection launches {counts}")
+    bake_ms = cuda_ms(lambda: pp.camera_projection(src, mesh, cam=cam,
+                                                   device=dev, **kw), 2)
+
+    t0 = time.perf_counter()
+    ref = s10.refs.result("warp")
+    waited = time.perf_counter() - t0
+    err = float((warped.cpu() - ref["warped"]).abs().max())
+    before = float(((src - tgt) ** 2).mean())
+    after = float(((warped - tgt) ** 2).mean())
+    after_cpu = float(((ref["warped"] - tgt.cpu()) ** 2).mean())
+    log("warp", f"compute_warp_field, 6 views at {BAKE_RES}² (n_grid 10, "
+        f"optim_res (64, 128), 20 steps each): {fit_ms / 1e3:.4f} s per fit, "
+        f"{per_step:.1f} CUDA kernels per Adam step ({card}); mean squared "
+        f"error to the targets {before:.6f} -> {after:.6f} (CPU "
+        f"{after_cpu:.6f}); card vs CPU ({ref['fit_s']:.1f} s): warped images "
+        f"max err {err:.3e}")
+    chart = ref["uv_mask"]
+    mask_eq = torch.equal(pres[0].uv_mask.cpu(), chart)
+    pos_err = float((pres[0].uv_pos.cpu() - ref["uv_pos"])[chart].abs().max())
+    flips = int((out.uv_proj_mask.cpu() != ref["uv_proj_mask"]).sum())
+    both = out.uv_proj_mask.cpu() & ref["uv_proj_mask"]
+    tex_err = float((out.uv_proj.cpu() - ref["uv_proj"])[both].abs().max())
+    log("warp", f"camera_projection(warp_images=True): {bake_ms / 1e3:.4f} s "
+        f"per bake, K1 launches {counts['gbuffer_tiles']} ({card}); card vs "
+        f"CPU ({ref['bake_s']:.1f} s in a process of its own, waited "
+        f"{waited:.1f} s): uv_mask equal {mask_eq}, uv_pos max err {pos_err}, "
+        f"baked-mask flips {flips} of {int(chart.sum())} chart texels "
+        f"({int(ref['uv_proj_mask'].sum())} baked), texel max err "
+        f"{tex_err:.3e} where both are valid")
+    if not (err <= 1e-3 and after < before and torch.isfinite(warped).all()):
+        raise AssertionError("warp: the card's fit disagrees with the CPU's")
+    if not (mask_eq and pos_err <= 1e-5 and flips <= 1e-4 * int(chart.sum())
+            and tex_err <= 1e-4 and both.float().mean() > 0.2
+            and torch.isfinite(out.uv_proj).all()):
+        raise AssertionError("warp: the card's bake disagrees with the CPU's")
+    return {"gbuffer_tiles": counts["gbuffer_tiles"]}
+
+
+def paint_phase(pt, gb, gc, zc, rk, dev, card, s10) -> dict:
+    """Slice 10's smart painter at the application's settings
+    (texture_pipeline.py:203-214, ModProcessConfig :42-45): score renders
+    108 x 256², inpaint renders 1024², min_rounds 4, max_rounds 8,
+    threshold 0.02, default_inpaint_func, uv_padding_end on, over
+    Slice10.paint. Prints the rounds and seconds per round, one round's
+    stage split from a trace (the score render, the two 1024² renders, the
+    inpaint, the projection), CUDA kernels per round and the device's idle
+    share. Then one round (min_rounds = max_rounds = 1) on the card against
+    the port's CPU run, both with the same rig (the same generator), at
+    score 128² and inpaint 512² on 8x32 tiles (PAINT_CPU_*): the same best
+    view, covered-mask flips at most 1e-4 of chart texels, texels within
+    1e-4 where both are valid. Returns the launches per kernel."""
+    from unittest import mock
+
+    from torch.profiler import record_function
+
+    from worldrenderer_tpu_torch.baking import smart_paint as ps
+
+    p = s10.paint
+    mesh, tex, hole, chart = p["mesh"], p["tex"], p["hole"], p["chart"]
+    painter = ps.SmartPainter(p["cfg"])
+    kw = dict(max_view_score_thresh=0.02, min_rounds=4, max_rounds=8,
+              uv_padding_end=True, score_render_size=PAINT_SCORE,
+              inpaint_render_size=PAINT_INPAINT)
+    reset_counts(gc, zc, rk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, covered = painter(mesh, ps.default_inpaint_func, tex, hole, device=dev,
+                           **kw)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts(gc, zc, rk)
+    rounds = len(painter.history)
+    # a round: the score render, the two 1024² renders, the projection's
+    # atlas and view maps
+    if counts["gbuffer_tiles"] != 5 * rounds or sum(counts.values()) != 5 * rounds:
+        raise AssertionError(f"paint: launches {counts} in {rounds} rounds")
+    scores = [float(h["view_scores"].max()) for h in painter.history]
+    log("paint", f"SmartPainter over {int(hole.sum())} uncovered of "
+        f"{int(chart.sum())} chart texels (set-up {s10.setup_s:.1f} s): "
+        f"{rounds} rounds in {run_s:.3f} s ({run_s / rounds:.4f} s per round, "
+        f"{card}), K1 launches {counts['gbuffer_tiles']}; best views "
+        f"{[h['best_view'] for h in painter.history]}, worst scores "
+        f"{[round(s, 5) for s in scores]}; {int((covered & hole).sum())} of "
+        "the uncovered texels covered")
+    if not (torch.isfinite(out).all() and bool((covered | hole).all())
+            and int((covered & hole).sum()) > 0):
+        raise AssertionError("paint: the painter did not cover new texels")
+
+    # One round's stage split: each step of the round in a profiler range.
+    def ranged(fn, label):
+        def wrapped(*a, **k):
+            with record_function("bake::" + label(a)):
+                return fn(*a, **k)
+        return wrapped
+
+    one = dict(kw, min_rounds=1, max_rounds=1)
+    render_label = ranged(ps.render, lambda a: "score render"
+                          if a[2] == PAINT_SCORE else "1024² renders")
+
+    def one_round():
+        with mock.patch.object(ps, "render", render_label), \
+                mock.patch.object(ps, "camera_projection",
+                                  ranged(ps.camera_projection,
+                                         lambda a: "projection")):
+            return painter(mesh, ranged(ps.default_inpaint_func,
+                                        lambda a: "inpaint"),
+                           tex, hole, device=dev, **one)
+
+    split = stage_split(one_round)
+    wall, busy, n_kernels, _ = profile_ms(
+        lambda: painter(mesh, ps.default_inpaint_func, tex, hole, device=dev,
+                        **one), 1)
+    log("paint", "one round's stage split (device ms, one trace): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; traced {wall:.1f} ms wall, device busy {busy:.1f} ms "
+        f"({100 * (1 - busy / wall):.1f}% idle), {n_kernels:.0f} CUDA kernels "
+        "per round")
+
+    small = ps.SmartPainter(p["small_cfg"])
+    got, got_cov = small(mesh, ps.default_inpaint_func, tex, hole, device=dev,
+                         generator=torch.Generator().manual_seed(PAINT_SEED),
+                         **p["small_kw"])
+    got_view = small.history[0]["best_view"]
+    t0 = time.perf_counter()
+    ref = s10.refs.result("paint")
+    waited = time.perf_counter() - t0
+    chart_n = int(chart.sum())
+    flips = int((got_cov.cpu() != ref["covered"]).sum())
+    both = got_cov.cpu() & ref["covered"]
+    tex_err = float((got.cpu() - ref["texture"])[both].abs().max())
+    log("paint", f"one round at score {PAINT_CPU_SCORE}², inpaint "
+        f"{PAINT_CPU_INPAINT}², 8x32 tiles, card vs CPU ({ref['seconds']:.1f} "
+        f"s in a process of its own, waited {waited:.1f} s): best view "
+        f"{got_view} / {ref['best_view']}, covered-mask flips {flips} of "
+        f"{chart_n} chart texels, texel max err {tex_err:.3e} where both are "
+        "valid")
+    if not (got_view == ref["best_view"] and flips <= 1e-4 * chart_n
+            and tex_err <= 1e-4):
+        raise AssertionError("paint: the card's round disagrees with the CPU's")
+    return {"gbuffer_tiles": counts["gbuffer_tiles"]}
 
 def k1_k4_readings(port_root: Path) -> int:
     """``python3 chip_smoke.py --k1-k4 ROOT``: only the tile kernels' times
@@ -2424,6 +2998,8 @@ def main() -> int:
         return k1_k4_readings(Path(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--probes":
         return probe_readings(Path(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--cpu-refs":
+        return cpu_references(sys.argv[2])
     # The port must come from the checkout this script sits in (first on
     # sys.path), never from an installed copy: alone in a directory, the
     # script fails.
@@ -2449,6 +3025,19 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    # The CPU runs that [main], [flat], [attr] and [diff] hold the card
+    # against, beside everything else from the start.
+    early = CpuReferences("early", dict.fromkeys(("main", "flat", "attr", "diff")))
+    try:
+        return run_all(pt, meshproc, _build, gb, gc, rk, pr, zc, dev, early,
+                       t_start)
+    finally:
+        early.close()
+
+
+def run_all(pt, meshproc, _build, gb, gc, rk, pr, zc, dev, early,
+            t_start) -> int:
+    """The build, then every phase."""
     card = smi()
     log("env", card)
     log("env", f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2479,6 +3068,39 @@ def main() -> int:
         log("time", f"{what} done at {time.perf_counter() - t_start:.1f} s")
 
     mark("build")
+    # Slice 7's, 8's and 10's paths, each driven with every count set to 0
+    # just before it and read just after, with its wall seconds. Slice 10's
+    # inputs for [warp] and [paint] are made before [bake], which starts
+    # their CPU runs beside the phases from there on.
+    s10 = []
+
+    def slice10():
+        if not s10:
+            s10.append(Slice10(pt, dev))
+        return s10[0]
+
+    late = {
+        "town": lambda: town_phase(pt, gb, gc, zc, rk, dev, card),
+        "tiny": lambda: tiny_phase(pt, gb, pr, gc, zc, rk, dev, card),
+        "lod": lambda: lod_phase(pt, gb, gc, zc, rk, dev, card),
+        "subtile": lambda: subtile_phase(pt, gb, gc, zc, rk, dev, card),
+        "bake": lambda: (slice10(), bake_phase(pt, gb, gc, zc, rk, dev, card))[1],
+        "bake_full": lambda: bake_full_phase(pt, gb, gc, zc, rk, dev, card),
+        "diff": lambda: diff_phase(pt, gb, gc, zc, rk, dev, card, early),
+        "warp": lambda: warp_phase(pt, gb, gc, zc, rk, dev, card, slice10()),
+        "paint": lambda: paint_phase(pt, gb, gc, zc, rk, dev, card, slice10()),
+    }
+    try:
+        return run_phases(pt, gb, pr, gc, zc, rk, dev, card, late, mark,
+                          t_start, early)
+    finally:
+        if s10:
+            s10[0].refs.close()
+
+
+def run_phases(pt, gb, pr, gc, zc, rk, dev, card, late, mark, t_start,
+               early) -> int:
+    """Every phase after the build."""
     camera_phase(pt, dev)
 
     # Phase 3: K1 against its plain version on the card.
@@ -2555,7 +3177,8 @@ def main() -> int:
         raise AssertionError("render() did not launch K1")
     log("main", f"render(): K1 launches {launches}")
 
-    ref = pt.render(mesh.to("cpu"), cam.to("cpu"), 512, 512, device="cpu", **kw)
+    cpu = early.result("main")
+    ref = cpu["render"]
     fg = int(ref.mask.sum())
     mask_diff = int((out.mask.cpu() != ref.mask).sum())
     both = out.mask.cpu() & ref.mask
@@ -2569,11 +3192,10 @@ def main() -> int:
     pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
     g_gpu = pt.rasterize_gbuffer(pos, mesh.t_pos_idx, None, (512, 512),
                                  head_cfg, device=dev)
-    g_cpu = pt.rasterize_gbuffer(pos.cpu(), mesh.t_pos_idx.cpu(), None,
-                                 (512, 512), head_cfg, device="cpu")
-    id_diff = int((g_gpu.tri_id.cpu() != g_cpu.tri_id).sum())
-    log("main", f"tri_id diff GPU vs CPU: {id_diff}")
-    if id_diff > 1e-4 * fg:
+    id_diff = int((g_gpu.tri_id.cpu() != cpu["tri_id"]).sum())
+    log("main", f"tri_id diff GPU vs CPU: {id_diff} (the CPU's run "
+        f"{cpu['seconds']:.1f} s in a process of its own)")
+    if id_diff > 1e-4 * fg or head_cfg != cpu["cfg"]:
         raise AssertionError("GPU triangle ids disagree with the CPU")
     spread_report(pt, mesh, cam, dev, kw, out, ref)
 
@@ -2634,13 +3256,13 @@ def main() -> int:
     launches += classic_phase(pt, gc, zc, rk, dev, card)
     mark("atlas, classic")
     for name, n in flat_backends_phase(pt, gb, gc, zc, rk, dev, card,
-                                       head_cfg).items():
+                                       head_cfg, early).items():
         tile_launches[name] += n
     # Slice 3's paths, the same way.
     mark("flat")
     launches += texture_phase(pt, gb, gc, zc, rk, dev, card)
     mark("texture")
-    for name, n in attr_phase(pt, gc, zc, rk, dev, card).items():
+    for name, n in attr_phase(pt, gc, zc, rk, dev, card, early).items():
         tile_launches[name] += n
     mark("attr")
     launches += chunk_phase(pt, gc, zc, rk, dev, card)
@@ -2649,17 +3271,7 @@ def main() -> int:
     mark("ssaa")
     for name, n in probes_phase().items():
         probe_entries[name]["launches"] = n
-    # Slice 7's and slice 8's paths, the same way, each with its wall
-    # seconds.
-    for phase, call in (
-            ("town", lambda: town_phase(pt, gb, gc, zc, rk, dev, card)),
-            ("tiny", lambda: tiny_phase(pt, gb, pr, gc, zc, rk, dev, card)),
-            ("lod", lambda: lod_phase(pt, gb, gc, zc, rk, dev, card)),
-            # Slice 8's paths, the same way.
-            ("subtile", lambda: subtile_phase(pt, gb, gc, zc, rk, dev, card)),
-            ("bake", lambda: bake_phase(pt, gb, gc, zc, rk, dev, card)),
-            ("bake_full",
-             lambda: bake_full_phase(pt, gb, gc, zc, rk, dev, card))):
+    for phase, call in late.items():
         t_phase = time.perf_counter()
         for name, n in call().items():
             if name == "gbuffer_tiles":

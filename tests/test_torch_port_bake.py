@@ -387,8 +387,9 @@ def test_camera_projection_matches_jax(bake):
 
 def test_camera_projection_iou_rejection_and_unported_options(bake):
     """Masks that disagree with the silhouettes return None; the rendered
-    masks themselves pass. device_mesh and warp_images name their queue
-    items."""
+    masks themselves pass. device_mesh names its queue item; warp_images
+    without images_background raises (the warp itself:
+    tests/test_torch_port_paint.py)."""
     kw = dict(cam=bake["pc"], uv_size=UV_SIZE, poisson_blending=False,
               raster_config=pt.RasterizerConfig(), device="cpu",
               validate_binning=False)
@@ -403,7 +404,7 @@ def test_camera_projection_iou_rejection_and_unported_options(bake):
     with pytest.raises(NotImplementedError, match="item 12"):
         pproj.camera_projection(bake["images"], bake["pm"], device_mesh=object(),
                                 **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="images_background"):
         pproj.camera_projection(bake["images"], bake["pm"], warp_images=True,
                                 **kw)
 

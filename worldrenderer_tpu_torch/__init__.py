@@ -7,10 +7,12 @@ the LOD chain's decimation (``meshproc``) run on the host and move their
 results there. The rasterizer's tile passes are
 hand-written CUDA kernels for Hopper (``csrc/``) whose plain PyTorch
 versions run on the CPU; so are the measurement probes of ``probes/``.
-``baking`` projects multi-view images onto a mesh's UV texture.
+``baking`` projects multi-view images onto a mesh's UV texture, fits
+views to renders (``compute_warp_field``) and inpaints what no view saw
+(``SmartPainter``); ``rasterize_diff`` gives vertex-position gradients.
 """
 
-from . import baking
+from . import baking, geometry, utils
 
 from .camera import (
     Camera,
@@ -53,6 +55,7 @@ from .ops.rasterize import (
     binning_stats,
     rasterize,
     rasterize_db,
+    rasterize_diff,
 )
 from .ops.texture import texture, texture_construct_mip
 from .render import (
@@ -62,7 +65,7 @@ from .render import (
     Zero123PlusPlusNormalization,
     render,
 )
-from .transforms import get_clip_space_position, transform_points_homo
+from .transforms import dot, get_clip_space_position, transform_points_homo
 
 __all__ = [
     "Camera", "affine_inverse", "get_c2w", "get_camera",
@@ -76,11 +79,11 @@ __all__ = [
     "load_mesh", "merge_duplicate_vertices", "is_watertight",
     "LODChain", "build_lod_chain", "select_lod_level",
     "antialias", "GBufferOutput", "rasterize_gbuffer", "interpolate",
-    "rasterize", "rasterize_db", "texture", "texture_construct_mip",
-    "grid_sample", "baking",
+    "rasterize", "rasterize_db", "rasterize_diff", "texture",
+    "texture_construct_mip", "grid_sample", "baking", "geometry", "utils",
     "DEFAULT_CONFIG", "FAST_TPU_CONFIG", "RasterizerConfig",
     "auto_fast_config", "binning_stats",
     "DepthControlNetNormalization", "RenderOutput", "SimpleNormalization",
     "Zero123PlusPlusNormalization", "render",
-    "get_clip_space_position", "transform_points_homo",
+    "dot", "get_clip_space_position", "transform_points_homo",
 ]

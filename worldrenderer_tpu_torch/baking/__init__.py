@@ -1,7 +1,7 @@
 """Inverse rendering: UV-space rasterization, view -> UV projection and
-multi-view blending (PyTorch counterpart of
-``worldrenderer_tpu/baking/``; ``warp``, ``smart_paint`` and ``seg`` are
-not ported yet)."""
+multi-view blending, the warp fit of views to renders, the iterative
+smart painter and the background-matting hooks (PyTorch counterpart of
+``worldrenderer_tpu/baking/``)."""
 
 from .projection import CameraProjection, CameraProjectionOutput, camera_projection
 from .uv import (
@@ -18,6 +18,9 @@ from .uv import (
     uv_render_attr,
     uv_render_geometry,
 )
+from .smart_paint import SmartPainter, default_inpaint_func
+from .warp import compute_warp_field, construct_grid_mesh
+from .seg import RMBGModel, SegmentationModel, ThresholdMatting
 
 __all__ = [
     "UVPrecomputeOutput",
@@ -35,4 +38,11 @@ __all__ = [
     "CameraProjection",
     "CameraProjectionOutput",
     "camera_projection",
+    "SmartPainter",
+    "default_inpaint_func",
+    "compute_warp_field",
+    "construct_grid_mesh",
+    "SegmentationModel",
+    "RMBGModel",
+    "ThresholdMatting",
 ]

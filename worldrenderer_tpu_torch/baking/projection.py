@@ -1,8 +1,8 @@
 """CameraProjection: multi-view images (and optional masks) -> a baked UV
 texture (PyTorch counterpart of ``worldrenderer_tpu/baking/projection.py``).
 
-uv_precompute -> uv_render_geometry -> IoU rejection -> uv_render_attr ->
-uv_blend, on ``device`` (the card unless ``device="cpu"``). Host decisions
+uv_precompute -> uv_render_geometry -> IoU rejection -> [warp] ->
+uv_render_attr -> uv_blend, on ``device`` (the card unless ``device="cpu"``). Host decisions
 read the device once each: the binning-budget guard (``binning_stats``),
 the IoU rejection, and nothing else.
 """
@@ -18,6 +18,7 @@ from .._device import DeviceLike, resolve_device
 from ..camera import Camera, get_camera
 from ..mesh import TexturedMesh
 from ..ops.rasterize import DEFAULT_CONFIG, RasterizerConfig, binning_stats
+from ..render import render
 from ..transforms import get_clip_space_position
 from .uv import (
     ExponentialBlend,
@@ -28,6 +29,7 @@ from .uv import (
     uv_render_attr,
     uv_render_geometry,
 )
+from .warp import compute_warp_field
 
 __all__ = ["CameraProjection", "CameraProjectionOutput", "camera_projection"]
 
@@ -167,19 +169,21 @@ def camera_projection(
     "auto" packs the view->UV gather as bytes when numpy ``images`` are
     255-quantized. ``validate_binning`` raises when the config's binning
     budgets would drop triangles in either rasterization. ``bg_remover`` is
-    the caller's callable, images -> masks."""
+    the caller's callable, images -> masks (a ``SegmentationModel``).
+    ``warp_images`` first fits each view to a render of the mesh over
+    ``images_background`` (``compute_warp_field``; square views)."""
     del device_mesh_axis, texel_chunks  # the sharded bake's; see below
     if device_mesh is not None:
         raise NotImplementedError(
             "device_mesh (the texel-sharded multi-device bake) is not ported "
             "yet: ROADMAP queue 1, item 12")
-    if warp_images:
-        raise NotImplementedError(
-            "warp_images (baking/warp.py, the optax Adam fit) is not ported "
-            "yet: ROADMAP queue 1, item 10")
+    if warp_images and images_background is None:
+        raise ValueError("warp_images needs images_background, the "
+                         "background of the renders the views are fitted to")
     dev = resolve_device(device)
     if images_pack_mode == "auto":
-        images_pack_mode = _auto_pack_mode(images)
+        # Warped images are no longer 255-quantized.
+        images_pack_mode = "none" if warp_images else _auto_pack_mode(images)
     images = torch.as_tensor(images, dtype=torch.float32, device=dev)
     if images.ndim != 4:
         raise ValueError("images must be (Nv, H, W, C)")
@@ -229,6 +233,15 @@ def camera_projection(
                 print(f"Minimum view IoU {iou_min} below threshold "
                       f"{iou_rejection_threshold}, skipping camera projection")
             return None
+
+    if warp_images:
+        target = render(mesh, cam, height, width, render_attr=True,
+                        render_depth=False, render_normal=False,
+                        attr_background=images_background,
+                        raster_config=raster_config, device=dev).attr
+        images = compute_warp_field(images, target, n_grid=10,
+                                    optim_res=(64, 128), optim_step_per_res=20,
+                                    lambda_reg=2.0, device=dev)
 
     attr = uv_render_attr(images, geo, masks=masks_t,
                           pack_mode=images_pack_mode, device=dev)

@@ -18,7 +18,8 @@ rounds as that dot does, through ``transforms.fma_f32``.
 classic setup, dense per-tile binning and kernel K4
 (``raster_zid_cuda.py``), above it through the flat G-buffer path and
 kernel K1 in uv mode (K2 for the "xla" backends, as the JAX package routes
-them).
+them). ``rasterize_diff`` returns the same values with gradients of
+(u, v, z/w) w.r.t. the clip positions.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from .tensor import BIG_NEG, edge0_pad_block, fma_dot3
 __all__ = [
     "RasterizerConfig", "DEFAULT_CONFIG", "FAST_TPU_CONFIG",
     "binning_stats", "auto_fast_config", "rasterize", "rasterize_db",
+    "rasterize_diff",
 ]
 
 _W_EPS = 1e-8
@@ -1178,3 +1180,79 @@ def rasterize_db(
     rast = _rasterize_batched(pos, tri, height, width, config)
     setup = _triangle_setup(pos, tri, width, height)
     return rast, _resolve_db(setup, rast[..., 3].to(torch.int32))
+
+
+def _diff_barycentrics(pos: torch.Tensor, tri: torch.Tensor, tid: torch.Tensor,
+                       height: int, width: int):
+    """Differentiable (u, v, z/w) of the fixed winner triangles: pos
+    (B, V, 4) clip positions, tid (B, H, W) winner ids + 1 (0 background,
+    constant). Perspective-correct barycentrics at the pixel centres from
+    each winner's corners, in the JAX package's expressions, clamps and
+    order: ``u = e1/w1 / sum_i e_i/w_i``, ``v = e2/w2 / ...``,
+    ``z = sum_i e_i z_i/w_i / sum_i e_i``, with e_i the screen-space
+    sub-triangle areas at the pixel centre."""
+    b = pos.shape[0]
+    t = torch.clamp(tid - 1, min=0).long()
+    bidx = torch.arange(b, device=pos.device)[:, None, None, None]
+    corners = pos[bidx, tri[t]]  # (B, H, W, 3, 4)
+    w = corners[..., 3]
+    w_safe = torch.where(w.abs() < _W_EPS, _W_EPS, w)
+    inv_w = 1.0 / w_safe
+    x = (corners[..., 0] * inv_w + 1.0) * (width * 0.5)  # (B, H, W, 3)
+    y = (corners[..., 1] * inv_w + 1.0) * (height * 0.5)
+    zw = corners[..., 2] * inv_w
+    px = torch.arange(width, dtype=torch.float32, device=pos.device)[None, None, :] + 0.5
+    py = torch.arange(height, dtype=torch.float32, device=pos.device)[None, :, None] + 0.5
+    # e_i = cross(v_prv - v_nxt, p - v_nxt): the barycentric numerator of i.
+    e = []
+    for i in range(3):
+        nxt, prv = (i + 1) % 3, (i + 2) % 3
+        dx = x[..., prv] - x[..., nxt]
+        dy = y[..., prv] - y[..., nxt]
+        e.append(dx * (py - y[..., nxt]) - dy * (px - x[..., nxt]))
+    e_sum = e[0] + e[1] + e[2]
+    e_sum = torch.where(e_sum.abs() < 1e-20, 1e-20, e_sum)
+    d = e[0] * inv_w[..., 0] + e[1] * inv_w[..., 1] + e[2] * inv_w[..., 2]
+    d = torch.where(d.abs() < 1e-30, 1e-30, d)
+    u = e[1] * inv_w[..., 1] / d
+    v = e[2] * inv_w[..., 2] / d
+    z = (e[0] * zw[..., 0] + e[1] * zw[..., 1] + e[2] * zw[..., 2]) / e_sum
+    return u, v, z
+
+
+class _StraightThrough(torch.autograd.Function):
+    """The rasterizer's (u, v, z/w, id + 1) unchanged; the gradient of
+    channels 0-2 goes to the recomputed u, v and z, channel 3 gets none."""
+
+    @staticmethod
+    def forward(ctx, rast, u, v, z):
+        return rast.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad[..., 0], grad[..., 1], grad[..., 2]
+
+
+def rasterize_diff(
+    pos: torch.Tensor,
+    tri: torch.Tensor,
+    resolution: Tuple[int, int],
+    config: RasterizerConfig = DEFAULT_CONFIG,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """:func:`rasterize` with vertex-position gradients (nvdiffrast's
+    model) on ``device`` (the card unless ``device="cpu"``).
+
+    Coverage, the winner id image, is treated as fixed; (u, v, z/w) carry
+    the analytic gradients w.r.t. the clip positions ``pos`` through a
+    perspective-correct barycentric recompute of each covered pixel's
+    winner (zero on background). Silhouette gradients come from
+    :func:`..antialias.antialias`. The values are :func:`rasterize`'s bit
+    for bit: the recompute only carries the gradient."""
+    pos, tri = _classic_inputs(pos, tri, config, device)
+    height, width = resolution
+    rast = _rasterize_batched(pos.detach(), tri, height, width, config)
+    tid = rast[..., 3].to(torch.int32)
+    u, v, z = _diff_barycentrics(pos, tri, tid, height, width)
+    covered = (tid > 0).to(torch.float32)
+    return _StraightThrough.apply(rast, u * covered, v * covered, z * covered)

@@ -85,12 +85,27 @@ Phases, one line each; any failure exits nonzero before the last line:
      [paint] SmartPainter at the application's settings (score 108 x 256²,
      inpaint 1024², 4-8 rounds), seconds per round, a round's stage split
      and idle share, and one round against the CPU at score 128² and
-     inpaint 512².
+     inpaint 512²;
+ 10. slice 11's application, the same way: [app] ``project_and_render`` as
+     the CLI runs it on the committed town (24 frames of its path at
+     384x576, uv 2048, the host atlas, raster exact, pos_error_eps auto;
+     the footage rendered on the card and handed in for the one name
+     ``load_frames``, as the card's machine has no OpenCV), its seconds
+     warm and its parts', K1's launches, kernels and idle share, the
+     re-render against the footage, and 4 frames at 192x288, uv 512,
+     against the CPU (the written files decoded by the port's codec);
+     [texpipe] ``TexturePipeline`` on the six-view ORTHO rig at 768², uv
+     4096 (rgb upscaled x2 and inpainted by the painter, base colour, the
+     normal map rebaked), seconds per call and per modality, painter
+     rounds, kernels and idle share, and the call at 128², uv 256, uv
+     inpainting, against the CPU.
 To stay within 300 s, the CPU comparisons of earlier phases were cut:
 [tiles] none (its paths are held by [attr], [flat], [classic] and
 [diff]), [classic], [texture] and [lod] view 0, [town] frames 0 and 4,
 [bake] none ([warp] holds the same bake against the CPU with its limits),
-[bake_full] 40 sweeps on the CPU. The CPU runs that [main],
+[bake_full] 40 sweeps on the CPU. [app]'s and [texpipe]'s CPU runs go in
+a process of their own, started with their inputs before [town]. The
+CPU runs that [main],
 [flat], [attr] and [diff] hold the card against go in a process of their
 own at the lowest priority (CpuReferences), started first and running
 beside every phase; [warp]'s and [paint]'s in another, started with their
@@ -107,6 +122,11 @@ time only the tile kernels K1-K4 (``[k1] balance``, ``[k3] reduction``,
 K2 and K4 as given and with every count 0), or only P1's and P3's wrappers
 and kernels, with the port imported from ROOT, to compare two versions on
 one card (k1_k4_readings, probe_readings).
+
+    python3 chip_smoke.py --app
+
+runs only slice 11's [app] and [texpipe] with their CPU comparisons
+(app_readings).
 """
 
 from __future__ import annotations
@@ -114,6 +134,7 @@ from __future__ import annotations
 import concurrent.futures
 import functools
 import hashlib
+import importlib
 import json
 import os
 import subprocess
@@ -171,17 +192,24 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def profile_ms(fn, reps: int = 3):
-    """One torch.profiler trace of ``reps`` calls: (wall ms per call,
+def profile_ms(fn, reps: int = 3, warm: bool = True, host_ops: bool = True):
+    """One torch.profiler trace of ``reps`` calls, after a warm-up call
+    unless ``warm`` is False (``fn`` ran warm already): (wall ms per call,
     device-busy ms per call, CUDA kernels per call, top kernels as
     (name, ms per call, launches per call)). Kernel times are the trace's
-    device self times; the wall time includes the tracer's own cost."""
+    device self times; the wall time includes the tracer's own cost.
+    ``host_ops`` False traces the device alone: a call of 100,000s of
+    kernels then costs seconds, not minutes, to record and sum."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -1647,10 +1675,13 @@ def card_vs_cpu(out, ref, views, fields) -> tuple:
     return int((mask != ref.mask).sum()), int(ref.mask.sum()), errs
 
 
-def log_profile(phase, what, fn, reps: int = 3) -> None:
-    """A trace of ``reps`` calls of ``fn``: wall ms, device-busy ms, idle
-    share and CUDA kernels per call, and the top kernels."""
-    wall, busy, n_kernels, top = profile_ms(fn, reps)
+def log_profile(phase, what, fn, reps: int = 3, warm: bool = True,
+                host_ops: bool = True) -> None:
+    """A trace of ``reps`` calls of ``fn`` (profile_ms): wall ms, device-busy
+    ms, idle share and CUDA kernels per call, and the top kernels."""
+    t0 = time.perf_counter()
+    wall, busy, n_kernels, top = profile_ms(fn, reps, warm, host_ops)
+    what = f"{what} ({time.perf_counter() - t0:.1f} s with the trace's own work)"
     if not n_kernels:
         log(phase, f"{what}: device time not measured (no CUDA kernels in "
             "the trace)")
@@ -2896,6 +2927,441 @@ def paint_phase(pt, gb, gc, zc, rk, dev, card, s10) -> dict:
         raise AssertionError("paint: the card's round disagrees with the CPU's")
     return {"gbuffer_tiles": counts["gbuffer_tiles"]}
 
+# ---- Slice 11: the application --------------------------------------------
+
+# [app]: project_and_render at the CLI's defaults on the committed town:
+# 24 frames of its camera path at bench.py:371's 384x576, uv 2048, the host
+# atlas (uv_unwarp), raster "exact", pos_error_eps "auto". Its CPU
+# comparison: the first 4 frames at 192x288, uv 512.
+APP_FRAMES, APP_RES, APP_UV = 24, (384, 576), 2048
+APP_CPU_FRAMES, APP_CPU_RES, APP_CPU_UV = 4, (192, 288), 512
+# [texpipe]: TexturePipeline on the six-view ORTHO rig at 768², uv 4096; its
+# CPU comparison at 128², uv 256.
+TEXPIPE_RES, TEXPIPE_UV = 768, 4096
+TEXPIPE_CPU_RES, TEXPIPE_CPU_UV = 128, 256
+
+
+def texpipe_cpu_cfg(pt):
+    """The CPU-compared call's config, on both sides: DEFAULT_CONFIG on tiles
+    of 8x32, as [paint]'s CPU round (the plain K1 scans each tile's chunks
+    over all its pixels; 5 s on the CPU against 25 s or more on 32x128)."""
+    return pt.DEFAULT_CONFIG._replace(**PAINT_CPU_TILES)
+
+# Where the two phases write (git-ignored; removed at the end).
+APP_DIR = Path(__file__).resolve().parent / "_app_out"
+
+
+def app_footage(pt, dev, n, res):
+    """The town's own views from the first ``n`` cameras of its path
+    (load_mesh(flip_uv=True), attr_background 0), quantized to k/255 as an
+    8-bit video frame is written ((clip * 255) truncated): (n, H, W, 3)
+    host float32, what ``load_frames`` returns for such a video."""
+    from worldrenderer_tpu_torch.scene import load_camera_from_json
+
+    mesh = pt.load_mesh(str(DATA / "town.glb"), flip_uv=True, device=dev)
+    cam, _, _ = load_camera_from_json(DATA / "town_camera_path.json", *res,
+                                      max_views=n, device=dev)
+    attr = pt.render(mesh, cam, *res, render_depth=False, render_normal=False,
+                     attr_background=0.0, device=dev).attr
+    return (torch.floor(attr.clamp(0.0, 1.0) * 255.0) / 255.0).cpu().numpy()
+
+
+def app_call(footage, work, res, uv, dev, announce=False):
+    """``project_and_render`` as the CLI runs it (``--blend-path`` a copy of
+    tests/data/town.glb in ``work``, whose host atlas is written beside
+    it; ``--camera-json`` its path; ``--max-frames`` the footage's count;
+    ``--pos-error-eps auto``; every other argument its default) into
+    ``work/out``. The one name ``load_frames`` of the module is replaced,
+    for this call only, by a function that returns ``footage``: the
+    card's machine has no OpenCV to decode a video."""
+    import shutil
+    from unittest import mock
+
+    from worldrenderer_tpu_torch.pipelines import project_render as ppr
+
+    n = len(footage)
+    glb = work / "town.glb"
+    if not glb.exists():
+        work.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(DATA / "town.glb", glb)
+
+    def load_frames(video_path, frame_offset, frame_step, max_frames):
+        if (frame_offset, frame_step, max_frames) != (0, 1, n):
+            raise AssertionError(f"app: load_frames{frame_offset, frame_step, max_frames}")
+        return footage
+
+    if announce:
+        log("app", f"project_render.load_frames replaced for this call by the "
+            f"{n} footage frames rendered on the card (no OpenCV here)")
+    with mock.patch.object(ppr, "load_frames", load_frames):
+        ppr.project_and_render(
+            glb, "footage.mp4", work / "out", height=res[0], width=res[1],
+            uv_size=uv, max_frames=n,
+            camera_json=DATA / "town_camera_path.json", uv_unwarp=True,
+            raster="exact", pos_error_eps="auto", device=dev)
+    return work / "out"
+
+
+def read_app_dir(out, n) -> dict:
+    """The four sequences and the shaded GLB's texture that a call wrote,
+    decoded by the port's own codec: rgb / normal (n, H, W, 3), mask (n,
+    H, W) bool, depth (n, H, W) uint16, texture (U, U, 3), as int64."""
+    from worldrenderer_tpu_torch.scene.gltf import _decode_png, _decode_png16, parse_glb
+
+    def seq(name, dec):
+        return np.stack([dec((out / name / f"{name}_{i:05d}.png").read_bytes())
+                         for i in range(n)]).astype(np.int64)
+
+    for name in ("rgb", "mask", "normal", "depth"):
+        if len(list((out / name).glob("*.png"))) != n:
+            raise AssertionError(f"app: {out / name} holds no {n} frames")
+    tex = _decode_png(parse_glb(out / "projected_shaded.glb").image_bytes(0)[0])
+    return dict(rgb=seq("rgb", _decode_png), normal=seq("normal", _decode_png),
+                mask=seq("mask", _decode_png)[..., 0] > 0,
+                depth=seq("depth", _decode_png16), texture=tex.astype(np.int64))
+
+
+def app_cpu_ref(pt, footage) -> dict:
+    """[app]'s CPU run: the reduced call on the CPU, into CPU_REF_DIR/app."""
+    t0 = time.perf_counter()
+    out = app_call(footage, CPU_REF_DIR / "app" / "work", APP_CPU_RES,
+                   APP_CPU_UV, "cpu")
+    return dict(out=str(out), seconds=time.perf_counter() - t0)
+
+
+def texpipe_inputs(pt, dev, res, work):
+    """[texpipe]'s object and views, written into ``work``: bake_scene's mesh
+    (uv_sphere_mesh(65, 129), 16,384 triangles) with its seeded 2048²
+    texture, scaled to load_mesh's half-extent 0.5 as [paint] scales it, as
+    a GLB (the port's save_glb); the pipeline's default six-view ORTHO rig
+    over the mesh as load_mesh reads it back, rendered on ``dev`` at res²;
+    the views' colour and their normal map (normal * 0.5 + 0.5) as PNG
+    directories (the port's encoder). Returns the mesh and the rig."""
+    from worldrenderer_tpu_torch.scene.gltf import _encode_png, save_glb
+
+    verts, faces, uv = pt.uv_sphere_mesh(65, 129)
+    seeded = torch.rand((BAKE_UV, BAKE_UV, 3),
+                        generator=torch.Generator().manual_seed(0)).numpy()
+    work.mkdir(parents=True, exist_ok=True)
+    glb = work / "object.glb"
+    save_glb(glb, vertices=(0.5 * verts).astype(np.float32),
+             faces=faces.astype(np.uint32), uv=uv.astype(np.float32),
+             texture=seeded)
+    mesh = pt.load_mesh(str(glb), device=dev)
+    rig = pt.get_orthogonal_camera(
+        elevation_deg=np.asarray((0, 0, 0, 0, 89.99, -89.99), np.float32),
+        distance=np.full(6, 1.0, np.float32), left=-0.55, right=0.55,
+        bottom=-0.55, top=0.55,
+        azimuth_deg=np.asarray([a - 90 for a in (0, 90, 180, 270, 180, 180)],
+                               np.float32), device=dev)
+    out = pt.render(mesh, rig, res, res, device=dev)
+    for name, imgs in (("rgb", out.attr), ("normal", out.normal * 0.5 + 0.5)):
+        (work / name).mkdir(exist_ok=True)
+        for i, img in enumerate(imgs.cpu().numpy()):
+            (work / name / f"view_{i}.png").write_bytes(_encode_png(img))
+    return mesh, rig
+
+
+def texpipe_config(pt, mesh, rig, res, uv):
+    """The card's TexturePipeline config: DEFAULT_CONFIG's budgets are lossy
+    for this mesh's atlas at 4096² (96,520 live entries against a flat cap
+    of 4 x 16,384), and camera_projection refuses them; so, as a user
+    would, auto_fast_config over the atlas at uv², with the rig's views at
+    res² and at the x2 upscale and the painter's anchor rig at its 256² and
+    1024² as probes, each checked lossless."""
+    from worldrenderer_tpu_torch.baking import smart_paint as ps
+
+    atlas = (atlas_clip(mesh), mesh.t_tex_idx, (uv, uv))
+    views = pt.get_clip_space_position(mesh.v_pos, rig.mvp_mtx)
+    anchors = pt.get_clip_space_position(
+        mesh.v_pos, ps._make_view_selection_cams(device=mesh.v_pos.device).mvp_mtx)
+    probes = [(views, mesh.t_pos_idx, (res, res)),
+              (views, mesh.t_pos_idx, (2 * res, 2 * res)),
+              (anchors, mesh.t_pos_idx, (256, 256)),
+              (anchors, mesh.t_pos_idx, (1024, 1024))]
+    cfg = pt.auto_fast_config(*atlas, base=pt.FAST_TPU_CONFIG, extra_probes=probes)
+    for pos, tri, size in probes + [atlas]:
+        chk = cfg._replace(backface_cull=0) if pos is atlas[0] else cfg
+        stats = pt.binning_stats(pos, tri, size, chk)
+        if not stats["ok"]:
+            raise AssertionError(f"texpipe: lossy budgets at {size}: {stats}")
+    return cfg
+
+
+TEXPIPE_MODS = ("rgb", "base colour", "normal map")
+
+
+def texpipe_call(work, out_dir, uv, mode, dev, marks=None, raster_config=None):
+    """TexturePipeline on the ORTHO rig (its defaults), uv ``uv``: rgb with
+    ModProcessConfig(view_upscale=True, inpaint_mode=mode) (the cubic x2
+    upscale, then the painter for "view"), base colour with the default
+    config, the normal map (the rebake), from the inputs texpipe_inputs
+    wrote into ``work``; a shaded and a PBR GLB into ``out_dir``. ``marks``
+    collects (what, seconds) at each modality's start and at the export.
+    ``raster_config`` is the pipeline's (DEFAULT_CONFIG by default).
+    Returns (output, pipeline)."""
+    from unittest import mock
+
+    from worldrenderer_tpu_torch.pipelines import texture_pipeline as ptp
+
+    tp = ptp.TexturePipeline(raster_config=raster_config, device=dev)
+    load = tp.load_packed_images
+
+    def marked(name, fn):
+        def call(*a, **k):
+            if marks is not None:
+                torch.cuda.synchronize()
+                marks.append((name(a), time.perf_counter()))
+            return fn(*a, **k)
+        return call
+
+    with mock.patch.object(tp, "load_packed_images",
+                           marked(lambda a: TEXPIPE_MODS[len(marks)], load)), \
+            mock.patch.object(ptp, "replace_glb_texture",
+                              marked(lambda a: "export", ptp.replace_glb_texture)):
+        out = tp(mesh_path=str(work / "object.glb"), save_dir=str(out_dir),
+                 save_name="texpipe", uv_size=uv, rgb_path=str(work / "rgb"),
+                 rgb_process_config=ptp.ModProcessConfig(view_upscale=True,
+                                                         inpaint_mode=mode),
+                 base_color_path=str(work / "rgb"),
+                 normal_path=str(work / "normal"),
+                 camera_projection_type="ORTHO")
+    return out, tp
+
+
+def texpipe_cpu_ref(pt, work) -> dict:
+    """[texpipe]'s CPU run: the reduced call on the inputs in ``work``, on
+    the CPU, into CPU_REF_DIR/texpipe."""
+    t0 = time.perf_counter()
+    out, _ = texpipe_call(Path(work), CPU_REF_DIR / "texpipe", TEXPIPE_CPU_UV,
+                          "uv", "cpu", raster_config=texpipe_cpu_cfg(pt))
+    return dict(uv_proj_rgb=out.uv_proj_rgb, pbr=out.pbr_model_save_path,
+                seconds=time.perf_counter() - t0)
+
+
+def glb_textures(path) -> list:
+    """Every image of a GLB, decoded by the port's codec, as int64."""
+    from worldrenderer_tpu_torch.scene.gltf import _decode_png, parse_glb
+
+    scene = parse_glb(path)
+    return [_decode_png(scene.image_bytes(i)[0]).astype(np.int64)
+            for i in range(len(scene.gltf.get("images", [])))]
+
+
+def lsb_misses(got, want) -> int:
+    """Pixels (or texels) where two decoded 8-bit images differ by more
+    than 1 in any channel."""
+    return int((np.abs(got - want) > 1).reshape(got.shape[0], got.shape[1],
+                                                -1).any(-1).sum())
+
+
+CPU_REFS.update(app=app_cpu_ref, texpipe=texpipe_cpu_ref)
+
+
+class Slice11:
+    """[app]'s and [texpipe]'s CPU runs (CpuReferences), started with
+    their inputs, made on the card, before the phases that come first: the
+    reduced footage of the town, and the object's GLB with its views at
+    TEXPIPE_CPU_RES² in APP_DIR/texpipe_small)."""
+
+    def __init__(self, pt, dev):
+        import shutil
+
+        t0 = time.perf_counter()
+        shutil.rmtree(APP_DIR, ignore_errors=True)
+        self.footage = app_footage(pt, dev, APP_CPU_FRAMES, APP_CPU_RES)
+        self.small = APP_DIR / "texpipe_small"
+        texpipe_inputs(pt, dev, TEXPIPE_CPU_RES, self.small)
+        self.refs = CpuReferences("app", {
+            "app": dict(footage=self.footage),
+            "texpipe": dict(work=str(self.small))})
+        self.setup_s = time.perf_counter() - t0
+
+
+def app_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
+    """Slice 11's application: ``project_and_render`` on the town as the CLI
+    runs it (app_call; APP_FRAMES frames at APP_RES, uv APP_UV) on the
+    card. Prints the call's wall seconds warm, its parts' (from wrappers
+    around the module's own names: process_raw, TexturePipeline.__call__,
+    chunk_batch, save_frames, save_depth_frames_16bit), K1's launches, the
+    kernels and idle share from one trace, and the median |re-render -
+    footage| inside the written mask against tests/test_project_render_cli.py's
+    0.1. Then the reduced call on the card against the port's CPU run
+    (decoded with the port's codec): mask flips at most 1e-4 of the
+    foreground, rgb and normal within 1 LSB outside the flipped pixels,
+    depth within 1 LSB of 16 bits, the shaded GLB's texture within 1 LSB
+    at all but 1e-4 of texels. Returns the launches per kernel."""
+    from unittest import mock
+
+    from worldrenderer_tpu_torch import meshproc
+    from worldrenderer_tpu_torch.pipelines import project_render as ppr
+    from worldrenderer_tpu_torch.pipelines import texture_pipeline as ptp
+
+    t0 = time.perf_counter()
+    footage = app_footage(pt, dev, APP_FRAMES, APP_RES)
+    foot_s = time.perf_counter() - t0
+    work = APP_DIR / "app"
+
+    reset_counts(gc, zc, rk)
+    t0 = time.perf_counter()
+    app_call(footage, work, APP_RES, APP_UV, dev, announce=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counts(gc, zc, rk)
+    if counts["gbuffer_tiles"] < 1:
+        raise AssertionError(f"app: project_and_render launched {counts}")
+
+    parts = {}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return call
+
+    with mock.patch.object(meshproc, "process_raw",
+                           timed("process_raw", meshproc.process_raw)), \
+            mock.patch.object(ptp.TexturePipeline, "__call__",
+                              timed("TexturePipeline", ptp.TexturePipeline.__call__)), \
+            mock.patch.object(ppr, "chunk_batch", timed("chunk_batch", ppr.chunk_batch)), \
+            mock.patch.object(ppr, "save_frames", timed("save_frames", ppr.save_frames)), \
+            mock.patch.object(ppr, "save_depth_frames_16bit",
+                              timed("save_depth_frames_16bit",
+                                    ppr.save_depth_frames_16bit)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        app_call(footage, work, APP_RES, APP_UV, dev)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+    got = read_app_dir(work / "out", APP_FRAMES)
+    err = np.abs(got["rgb"] / 255.0 - footage)[got["mask"]]
+    median = float(np.median(err))
+    log("app", f"project_and_render, town ({APP_FRAMES} frames at "
+        f"{APP_RES[0]}x{APP_RES[1]}, uv {APP_UV}, uv_unwarp, raster exact, "
+        f"pos_error_eps auto): {call_s:.3f} s per call warm, {first_s:.3f} s "
+        f"the first ({card}; the footage rendered in {foot_s:.2f} s, the CPU "
+        f"runs' inputs in {s11.setup_s:.2f} s); parts "
+        f"(s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; launches {counts}; median |re-render - footage| in the mask "
+        f"{median:.4f} over {int(got['mask'].sum())} pixels (limit 0.1)")
+    log_profile("app", "project_and_render (device only)", lambda: app_call(
+        footage, work, APP_RES, APP_UV, dev), reps=1, warm=False, host_ops=False)
+    if not (median < 0.1 and got["mask"].mean() > 0.2):
+        raise AssertionError("app: the re-render does not reproduce the footage")
+
+    t0 = time.perf_counter()
+    small = app_call(s11.footage, APP_DIR / "app_small", APP_CPU_RES, APP_CPU_UV,
+                     dev)
+    small_s = time.perf_counter() - t0
+    ours = read_app_dir(small, APP_CPU_FRAMES)
+    t0 = time.perf_counter()
+    ref = s11.refs.result("app")
+    waited = time.perf_counter() - t0
+    want = read_app_dir(Path(ref["out"]), APP_CPU_FRAMES)
+    fg = int(want["mask"].sum())
+    flips = ours["mask"] != want["mask"]
+    keep = ~flips
+    rgb_bad = int(((np.abs(ours["rgb"] - want["rgb"]) > 1).any(-1) & keep).sum())
+    nrm_bad = int(((np.abs(ours["normal"] - want["normal"]) > 1).any(-1)
+                   & keep).sum())
+    depth_err = int(np.abs(ours["depth"] - want["depth"]).max())
+    tex_bad = lsb_misses(ours["texture"], want["texture"])
+    tex_n = want["texture"].shape[0] * want["texture"].shape[1]
+    log("app", f"{APP_CPU_FRAMES} frames at {APP_CPU_RES[0]}x{APP_CPU_RES[1]}, "
+        f"uv {APP_CPU_UV}, {small_s:.2f} s on the card; card vs CPU "
+        f"({ref['seconds']:.1f} s in a process of "
+        f"its own, waited {waited:.1f} s): mask flips {int(flips.sum())} of {fg} "
+        f"foreground, rgb / normal pixels beyond 1 LSB outside them {rgb_bad} / "
+        f"{nrm_bad}, depth max err {depth_err} LSB, shaded texture texels "
+        f"beyond 1 LSB {tex_bad} of {tex_n}")
+    if not (flips.sum() <= 1e-4 * fg and rgb_bad == 0 and nrm_bad == 0
+            and depth_err <= 1 and tex_bad <= 1e-4 * tex_n and fg > 0):
+        raise AssertionError("app: the card's run disagrees with the CPU's")
+    return {"gbuffer_tiles": counts["gbuffer_tiles"]}
+
+
+def texpipe_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
+    """Slice 11's texture pipeline: TexturePipeline on the MV-Adapter
+    six-view ORTHO rig (texpipe_inputs at TEXPIPE_RES², texpipe_call at uv
+    TEXPIPE_UV with texpipe_config's budgets: rgb upscaled x2 to 1536² and
+    inpainted by the smart painter, base colour, the normal map rebaked)
+    on the card: seconds per
+    call, per modality, the painter's rounds, K1's launches, the kernels
+    and idle share from one trace. Then the reduced call (TEXPIPE_CPU_RES²,
+    uv TEXPIPE_CPU_UV, inpaint_mode "uv", the upscale on) against the
+    port's CPU run: uv_proj_rgb within 1e-4 at all but 1e-4 of the chart's
+    texels, the PBR GLB's base-colour and normal textures within 1 LSB at
+    all but 1e-4 of texels. (The painter's card run is held to the CPU by
+    [paint].) Returns the launches per kernel."""
+    work = APP_DIR / "texpipe"
+    t0 = time.perf_counter()
+    mesh, rig = texpipe_inputs(pt, dev, TEXPIPE_RES, work)
+    cfg = texpipe_config(pt, mesh, rig, TEXPIPE_RES, TEXPIPE_UV)
+    inputs_s = time.perf_counter() - t0
+
+    # One call counted and timed (the pipeline's first in the process: the
+    # kernels and the allocator are warm from the earlier phases; PR 11
+    # call 3 read 15.060 s first and 14.150 s second), one traced.
+    marks = []
+    reset_counts(gc, zc, rk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, tp = texpipe_call(work, work / "out", TEXPIPE_UV, "view", dev, marks,
+                           raster_config=cfg)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    counts = read_counts(gc, zc, rk)
+    if counts["gbuffer_tiles"] < 1:
+        raise AssertionError(f"texpipe: TexturePipeline launched {counts}")
+    ends = [t for _, t in marks[1:]] + [t0 + call_s]
+    spans = ", ".join(f"{name} {end - t:.3f}" for (name, t), end in zip(marks, ends))
+    rounds = len(tp.smart_painter.history)
+    log("texpipe", f"TexturePipeline, ORTHO rig, 6 views at {TEXPIPE_RES}² "
+        f"(inputs and the config made in {inputs_s:.2f} s), uv {TEXPIPE_UV}: "
+        f"{call_s:.3f} s per call ({card}); from each modality's start (s): "
+        f"{spans}; "
+        f"painter rounds {rounds}; launches {counts}")
+    log_profile("texpipe", "TexturePipeline (device only)", lambda: texpipe_call(
+        work, work / "out", TEXPIPE_UV, "view", dev, raster_config=cfg),
+        reps=1, warm=False, host_ops=False)
+    rgb = out.uv_proj_rgb
+    if not (rounds >= 4 and torch.isfinite(rgb).all()
+            and len(glb_textures(out.pbr_model_save_path)) == 2):
+        raise AssertionError("texpipe: the pipeline's output is malformed")
+
+    t0 = time.perf_counter()
+    small, _ = texpipe_call(s11.small, s11.small / "card", TEXPIPE_CPU_UV, "uv",
+                            dev, raster_config=texpipe_cpu_cfg(pt))
+    small_s = time.perf_counter() - t0
+    small_tex = glb_textures(small.pbr_model_save_path)
+    t0 = time.perf_counter()
+    ref = s11.refs.result("texpipe")
+    waited = time.perf_counter() - t0
+    mesh = pt.load_mesh(str(s11.small / "object.glb"), device=dev)
+    chart = pt.baking.uv_precompute(mesh, TEXPIPE_CPU_UV, TEXPIPE_CPU_UV,
+                                    device=dev).uv_mask.cpu()
+    n_chart = int(chart.sum())
+    rgb_bad = int(((small.uv_proj_rgb.cpu() - ref["uv_proj_rgb"]).abs() > 1e-4)
+                  .any(-1)[chart].sum())
+    tex_bad = [lsb_misses(a, b) for a, b in zip(small_tex, glb_textures(ref["pbr"]))]
+    n_tex = TEXPIPE_CPU_UV ** 2
+    log("texpipe", f"6 views at {TEXPIPE_CPU_RES}², uv {TEXPIPE_CPU_UV}, "
+        f"inpaint_mode uv, 8x32 tiles, {small_s:.2f} s on the card; card vs "
+        f"CPU ({ref['seconds']:.1f} s in a process of "
+        f"its own, waited {waited:.1f} s): uv_proj_rgb texels beyond 1e-4 "
+        f"{rgb_bad} of {n_chart} chart texels; PBR base colour / normal texels "
+        f"beyond 1 LSB {tex_bad} of {n_tex}")
+    if not (rgb_bad <= 1e-4 * n_chart and len(tex_bad) == 2
+            and max(tex_bad) <= 1e-4 * n_tex and n_chart > 0.2 * n_tex):
+        raise AssertionError("texpipe: the card's run disagrees with the CPU's")
+    return {"gbuffer_tiles": counts["gbuffer_tiles"]}
+
+
 def k1_k4_readings(port_root: Path) -> int:
     """``python3 chip_smoke.py --k1-k4 ROOT``: only the tile kernels' times
     (K1's ``[k1] balance`` on the headline and config4, K3's ``[k3]
@@ -2912,7 +3378,7 @@ def k1_k4_readings(port_root: Path) -> int:
     from worldrenderer_tpu_torch.ops import gbuffer as gb
     from worldrenderer_tpu_torch.ops import gbuffer_cuda as gc
     from worldrenderer_tpu_torch.ops import raster_zid_cuda as rk
-    from worldrenderer_tpu_torch.ops import rasterize as pr
+    pr = importlib.import_module("worldrenderer_tpu_torch.ops.rasterize")
     from worldrenderer_tpu_torch.ops import zattr_cuda as zc
     from worldrenderer_tpu_torch.probes import cuda_ms
 
@@ -2993,6 +3459,42 @@ def probe_readings(port_root: Path) -> int:
     return 0
 
 
+def app_readings() -> int:
+    """``python3 chip_smoke.py --app``: only slice 11's [app] and [texpipe]
+    (their CPU runs beside them), after the tile kernels and the host's
+    meshproc are built."""
+    global cuda_ms
+    import shutil
+
+    import worldrenderer_tpu_torch as pt
+    from worldrenderer_tpu_torch import meshproc
+    from worldrenderer_tpu_torch.ops import _build
+    from worldrenderer_tpu_torch.ops import gbuffer as gb
+    from worldrenderer_tpu_torch.ops import gbuffer_cuda as gc
+    from worldrenderer_tpu_torch.ops import raster_zid_cuda as rk
+    from worldrenderer_tpu_torch.ops import zattr_cuda as zc
+    from worldrenderer_tpu_torch.probes import cuda_ms
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = smi()
+    log("env", card)
+    _build.build(["gbuffer_tiles", "raster_zid_tiles", "zattr_tiles"])
+    meshproc._get_lib()
+    s11 = Slice11(pt, dev)
+    try:
+        for name, phase in (("app", app_phase), ("texpipe", texpipe_phase)):
+            t0 = time.perf_counter()
+            phase(pt, gb, gc, zc, rk, dev, card, s11)
+            log(name, f"phase ran {time.perf_counter() - t0:.1f} s")
+    finally:
+        s11.refs.close()
+        shutil.rmtree(APP_DIR, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--k1-k4":
         return k1_k4_readings(Path(sys.argv[2]))
@@ -3000,6 +3502,8 @@ def main() -> int:
         return probe_readings(Path(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--cpu-refs":
         return cpu_references(sys.argv[2])
+    if sys.argv[1:] == ["--app"]:
+        return app_readings()
     # The port must come from the checkout this script sits in (first on
     # sys.path), never from an installed copy: alone in a directory, the
     # script fails.
@@ -3016,7 +3520,7 @@ def main() -> int:
     from worldrenderer_tpu_torch.ops import gbuffer as gb
     from worldrenderer_tpu_torch.ops import gbuffer_cuda as gc
     from worldrenderer_tpu_torch.ops import raster_zid_cuda as rk
-    from worldrenderer_tpu_torch.ops import rasterize as pr
+    pr = importlib.import_module("worldrenderer_tpu_torch.ops.rasterize")
     from worldrenderer_tpu_torch.ops import zattr_cuda as zc
     from worldrenderer_tpu_torch.probes import cuda_ms
 
@@ -3072,15 +3576,21 @@ def run_all(pt, meshproc, _build, gb, gc, rk, pr, zc, dev, early,
     # just before it and read just after, with its wall seconds. Slice 10's
     # inputs for [warp] and [paint] are made before [bake], which starts
     # their CPU runs beside the phases from there on.
-    s10 = []
+    s10, s11 = [], []
 
     def slice10():
         if not s10:
             s10.append(Slice10(pt, dev))
         return s10[0]
 
+    def slice11():
+        if not s11:
+            s11.append(Slice11(pt, dev))
+        return s11[0]
+
+    # Slice 11's CPU runs start with [town], the first of these phases.
     late = {
-        "town": lambda: town_phase(pt, gb, gc, zc, rk, dev, card),
+        "town": lambda: (slice11(), town_phase(pt, gb, gc, zc, rk, dev, card))[1],
         "tiny": lambda: tiny_phase(pt, gb, pr, gc, zc, rk, dev, card),
         "lod": lambda: lod_phase(pt, gb, gc, zc, rk, dev, card),
         "subtile": lambda: subtile_phase(pt, gb, gc, zc, rk, dev, card),
@@ -3089,13 +3599,18 @@ def run_all(pt, meshproc, _build, gb, gc, rk, pr, zc, dev, early,
         "diff": lambda: diff_phase(pt, gb, gc, zc, rk, dev, card, early),
         "warp": lambda: warp_phase(pt, gb, gc, zc, rk, dev, card, slice10()),
         "paint": lambda: paint_phase(pt, gb, gc, zc, rk, dev, card, slice10()),
+        "app": lambda: app_phase(pt, gb, gc, zc, rk, dev, card, slice11()),
+        "texpipe": lambda: texpipe_phase(pt, gb, gc, zc, rk, dev, card, slice11()),
     }
     try:
         return run_phases(pt, gb, pr, gc, zc, rk, dev, card, late, mark,
                           t_start, early)
     finally:
-        if s10:
-            s10[0].refs.close()
+        import shutil
+
+        for s in s10 + s11:
+            s.refs.close()
+        shutil.rmtree(APP_DIR, ignore_errors=True)
 
 
 def run_phases(pt, gb, pr, gc, zc, rk, dev, card, late, mark, t_start,

@@ -4,6 +4,7 @@ hygiene. Inputs are made with numpy and handed to both packages."""
 
 import ast
 import os
+import sys
 from pathlib import Path
 
 import jax
@@ -24,7 +25,9 @@ from worldrenderer_tpu.transforms import (
 import worldrenderer_tpu_torch as pt
 from worldrenderer_tpu_torch import _device
 from worldrenderer_tpu_torch.ops import gbuffer_cuda
-from worldrenderer_tpu_torch.ops import rasterize as prast
+import worldrenderer_tpu_torch.ops.rasterize  # noqa: F401  (sys.modules below)
+
+prast = sys.modules["worldrenderer_tpu_torch.ops.rasterize"]
 
 REPO = Path(__file__).resolve().parent.parent
 CAM_FIELDS = ("c2w", "w2c", "proj_mtx", "mvp_mtx", "cam_pos")

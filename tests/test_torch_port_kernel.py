@@ -21,7 +21,7 @@ import worldrenderer_tpu.ops.gbuffer_pallas  # noqa: F401
 import worldrenderer_tpu_torch as pt
 from worldrenderer_tpu_torch.ops import gbuffer as pg
 from worldrenderer_tpu_torch.ops import gbuffer_cuda as pc
-from worldrenderer_tpu_torch.ops import rasterize as pr
+import worldrenderer_tpu_torch.ops.rasterize  # noqa: F401  (sys.modules below)
 
 from chip_smoke import synthetic_k1_inputs, synthetic_k1_tie_inputs
 from test_torch_port_raster import (
@@ -30,6 +30,7 @@ from test_torch_port_raster import (
 
 jg = sys.modules["worldrenderer_tpu.ops.gbuffer"]
 jp = sys.modules["worldrenderer_tpu.ops.gbuffer_pallas"]
+pr = sys.modules["worldrenderer_tpu_torch.ops.rasterize"]
 
 
 def _l_cap(cfg, t_total, n_tiles, c=128):

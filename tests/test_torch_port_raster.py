@@ -18,10 +18,11 @@ from worldrenderer_tpu.mesh import icosphere, make_grid_mesh
 from worldrenderer_tpu.transforms import get_clip_space_position as j_clip
 
 import worldrenderer_tpu_torch as pt
-from worldrenderer_tpu_torch.ops import rasterize as pr
+import worldrenderer_tpu_torch.ops.rasterize  # noqa: F401  (sys.modules below)
 
 # `worldrenderer_tpu.ops` re-exports a function named like the module.
 jr = sys.modules["worldrenderer_tpu.ops.rasterize"]
+pr = sys.modules["worldrenderer_tpu_torch.ops.rasterize"]
 
 
 def _np(x):

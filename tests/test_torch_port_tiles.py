@@ -66,7 +66,7 @@ from worldrenderer_tpu.transforms import get_clip_space_position as j_clip
 import worldrenderer_tpu_torch as pt
 from worldrenderer_tpu_torch.ops import gbuffer as pg
 from worldrenderer_tpu_torch.ops import raster_zid_cuda as pk
-from worldrenderer_tpu_torch.ops import rasterize as pr
+import worldrenderer_tpu_torch.ops.rasterize  # noqa: F401  (sys.modules below)
 from worldrenderer_tpu_torch.ops import zattr_cuda as pz
 
 from chip_smoke import (
@@ -78,6 +78,7 @@ from chip_smoke import (
 
 # `worldrenderer_tpu.ops` re-exports functions named like the modules.
 jr = sys.modules["worldrenderer_tpu.ops.rasterize"]
+pr = sys.modules["worldrenderer_tpu_torch.ops.rasterize"]
 jg = sys.modules["worldrenderer_tpu.ops.gbuffer"]
 CAM_FIELDS = ("c2w", "w2c", "proj_mtx", "mvp_mtx", "cam_pos")
 

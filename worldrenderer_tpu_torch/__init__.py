@@ -12,7 +12,7 @@ views to renders (``compute_warp_field``) and inpaints what no view saw
 (``SmartPainter``); ``rasterize_diff`` gives vertex-position gradients.
 """
 
-from . import baking, geometry, utils
+from . import baking, geometry, ops, scene, utils
 
 from .camera import (
     Camera,
@@ -80,7 +80,8 @@ __all__ = [
     "LODChain", "build_lod_chain", "select_lod_level",
     "antialias", "GBufferOutput", "rasterize_gbuffer", "interpolate",
     "rasterize", "rasterize_db", "rasterize_diff", "texture",
-    "texture_construct_mip", "grid_sample", "baking", "geometry", "utils",
+    "texture_construct_mip", "grid_sample", "baking", "geometry", "ops",
+    "scene", "utils",
     "DEFAULT_CONFIG", "FAST_TPU_CONFIG", "RasterizerConfig",
     "auto_fast_config", "binning_stats",
     "DepthControlNetNormalization", "RenderOutput", "SimpleNormalization",

@@ -79,17 +79,34 @@ def _grid_pixel_coords(verts_xy: torch.Tensor, n_grid: int, res: int) -> torch.T
     return torch.where(lower, tri_lower, tri_upper)
 
 
-def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """(n_in, n_out) weights of ``jax.image.resize``'s linear antialiased
-    kernel along one axis, computed in fp32 as ``compute_weight_mat``
-    computes them."""
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel (a = -0.5) at distances x >= 0, in
+    ``jax.image.resize``'s order of operations."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def _resize_weights(n_in: int, n_out: int, device,
+                    kernel: str = "linear") -> torch.Tensor:
+    """(n_in, n_out) weights of ``jax.image.resize``'s antialiased
+    ``kernel`` ("linear" or "cubic") along one axis, computed in fp32 as
+    ``compute_weight_mat`` computes them: the taps widened by 1/scale when
+    downsampling, renormalised to sum to 1 per output sample (so the taps
+    that fall outside the input at the edges are dropped, not clamped), and
+    zero where the sample lies outside the input."""
     inv_scale = 1.0 / (n_out / n_in)
     kernel_scale = max(inv_scale, 1.0)
     f32 = dict(dtype=torch.float32, device=device)
     sample_f = (torch.arange(n_out, **f32) + 0.5) * inv_scale - 0.0 - 0.5
     x = (sample_f[None, :] - torch.arange(n_in, **f32)[:, None]).abs()
     x = x / torch.full_like(x, kernel_scale)
-    weights = torch.clamp(1.0 - x.abs(), min=0.0)
+    if kernel == "cubic":
+        weights = _keys_cubic(x)
+    elif kernel == "linear":
+        weights = torch.clamp(1.0 - x.abs(), min=0.0)
+    else:
+        raise ValueError(f"unknown resize kernel {kernel!r}")
     total = weights.sum(dim=0, keepdim=True)
     weights = torch.where(
         total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
@@ -98,18 +115,26 @@ def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     return torch.where(inside[None, :], weights, 0.0)
 
 
-def _resize(img: torch.Tensor, res: int) -> torch.Tensor:
-    """Antialiased linear resize of (..., H, W, C) to (..., res, res, C),
-    as ``jax.image.resize(method="linear", antialias=True)``; an axis
-    already at ``res`` is left as it is."""
+def resize_hw(img: torch.Tensor, height: int, width: int,
+              kernel: str = "linear") -> torch.Tensor:
+    """Antialiased resize of (..., H, W, C) to (..., height, width, C), as
+    ``jax.image.resize(method=kernel, antialias=True)``: one fp32
+    contraction per axis that changes (TF32 off on the card); an axis
+    already at its size is left as it is."""
     h, w = img.shape[-3], img.shape[-2]
-    if h != res:
-        wy = _resize_weights(h, res, img.device)
+    if h != height:
+        wy = _resize_weights(h, height, img.device, kernel)
         img = torch.einsum("...hwc,hi->...iwc", img, wy)
-    if w != res:
-        wx = _resize_weights(w, res, img.device)
+    if w != width:
+        wx = _resize_weights(w, width, img.device, kernel)
         img = torch.einsum("...hwc,wj->...hjc", img, wx)
     return img
+
+
+def _resize(img: torch.Tensor, res: int) -> torch.Tensor:
+    """Antialiased linear resize of (..., H, W, C) to (..., res, res, C),
+    as ``jax.image.resize(method="linear", antialias=True)``."""
+    return resize_hw(img, res, res)
 
 
 def compute_warp_field(

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ._device import DeviceLike, as_f32, resolve_device
+from .transforms import fma_f32
 
 ArrayLike = Union[torch.Tensor, np.ndarray, Sequence[float], float, int]
 
@@ -193,7 +194,12 @@ def affine_inverse(mat: torch.Tensor) -> torch.Tensor:
         dim=-2,
     )
     inv3 = adj / det[..., None, None]
-    t_inv = -torch.einsum("...ij,...j->...i", inv3, t)
+    # inv3 @ t rounded as the JAX package's fp32 einsum rounds on the CPU,
+    # fma(a2, t2, fma(a1, t1, a0 * t0)), never as a TF32 matmul.
+    a, tt = inv3.double(), t.double()[..., None, :]
+    acc = (inv3[..., 0] * t[..., None, 0]).double()
+    acc = fma_f32(a[..., 1], tt[..., 1], acc).double()
+    t_inv = -fma_f32(a[..., 2], tt[..., 2], acc)
     inv = torch.cat([inv3, t_inv[..., None]], dim=-1)
     bottom = torch.tensor(
         [0.0, 0.0, 0.0, 1.0], device=mat.device

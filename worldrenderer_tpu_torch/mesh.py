@@ -61,6 +61,10 @@ class TexturedMesh(NamedTuple):
     def num_faces(self) -> int:
         return self.t_pos_idx.shape[0]
 
+    @property
+    def uv_size(self) -> Optional[int]:
+        return None if self.texture is None else self.texture.shape[0]
+
     def to(self, device: DeviceLike) -> "TexturedMesh":
         return TexturedMesh(*(None if a is None else a.to(device) for a in self))
 

@@ -23,11 +23,11 @@ from .poisson import (
     poisson_blend_cropped,
     poisson_blend_multigrid,
 )
-# ``rasterize`` the function stays at the top level: here the name is the
-# module's.
+from .gbuffer import GBufferOutput, rasterize_gbuffer
 from .rasterize import (
     RasterizerConfig,
     auto_fast_config,
+    rasterize,
     rasterize_db,
     rasterize_diff,
 )
@@ -56,7 +56,8 @@ __all__ = [
     "batch_erode", "inpaint", "batch_inpaint", "poisson_blend",
     "poisson_blend_cropped", "poisson_blend_multigrid",
     "PoissonBlendingSolver", "RasterizerConfig", "auto_fast_config",
-    "rasterize_db", "rasterize_diff", "reflect", "scale_tensor",
+    "rasterize", "rasterize_db", "rasterize_gbuffer", "GBufferOutput",
+    "rasterize_diff", "reflect", "scale_tensor",
     "trunc_exp", "get_activation", "chunk_batch", "get_mvp_matrix",
     "rays_intersect_bbox", "get_plucker_rays", "c2w_to_polar",
     "polar_to_c2w", "fourier_position_encoding", "get_intrinsic_from_fov",

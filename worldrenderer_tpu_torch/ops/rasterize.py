@@ -980,7 +980,7 @@ def _gather_tile_rows_flat(all_planes, valid, flat, k_cap, n_tx, tile_w,
     )
     ep = torch.stack([ep[..., 0], ep[..., 1], gamma], dim=-1)
     # k_cap never-covering entries after the list, so no window is cut.
-    pad = edge0_pad_block(r, k_cap, BIG_NEG, dev).permute(2, 1, 0)
+    pad = edge0_pad_block(r, k_cap, torch.float32, BIG_NEG, dev).permute(2, 1, 0)
     ep = torch.cat([ep, pad.expand(bsz, k_cap, r, 3)], dim=1)
     j = torch.arange(k_cap, device=dev)
     win = ep[bidx[..., None], starts.long()[..., None] + j]  # (B, n_tiles, K, R, 3)

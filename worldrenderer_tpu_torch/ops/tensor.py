@@ -17,6 +17,21 @@ from .._device import DeviceLike, resolve_device
 from ..camera import normalize, rigid_inverse
 from ..transforms import dot, fma_f32
 
+__all__ = [
+    "reflect",
+    "scale_tensor",
+    "trunc_exp",
+    "get_activation",
+    "chunk_batch",
+    "get_mvp_matrix",
+    "rays_intersect_bbox",
+    "get_plucker_rays",
+    "c2w_to_polar",
+    "polar_to_c2w",
+    "fourier_position_encoding",
+    "edge0_pad_block",
+]
+
 # e0 constant of an invalid or padded entry: swallows any tile-origin
 # rebase exactly in f32, so the entry never covers a pixel.
 BIG_NEG = -3.0e38
@@ -42,11 +57,12 @@ def chunk_size(chunk: int) -> int:
     return max(128, (chunk // 128) * 128)
 
 
-def edge0_pad_block(r: int, pad: int, neg: float, device=None) -> torch.Tensor:
+def edge0_pad_block(r: int, pad: int, dtype, neg: float,
+                    device=None) -> torch.Tensor:
     """A ``(3, r, pad)`` plane-coefficient padding block, zero except the
     edge-0 constant row ``[2, 0, :]``, which is ``neg``: padded rasterizer
     slots are never covered."""
-    block = torch.zeros((3, r, pad), dtype=torch.float32, device=device)
+    block = torch.zeros((3, r, pad), dtype=dtype, device=device)
     block[2, 0] = neg
     return block
 
@@ -62,7 +78,7 @@ def pad_tile_blocks(coeffs: torch.Tensor, r: int, counts: torch.Tensor,
     co = coeffs.reshape(n_tiles, 3, r, k)
     pad = (-k) % c
     if pad:
-        block = edge0_pad_block(r, pad, BIG_NEG, coeffs.device)
+        block = edge0_pad_block(r, pad, coeffs.dtype, BIG_NEG, coeffs.device)
         co = torch.cat([co, block.expand(n_tiles, 3, r, pad)], dim=3)
     nch = (counts.long().clamp(0, k) + (c - 1)) // c
     return co, nch, c

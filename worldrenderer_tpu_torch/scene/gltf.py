@@ -10,7 +10,8 @@ replacement that patches the image bytes in place.
 Only the features the pipelines need are implemented: triangle primitives,
 POSITION / TEXCOORD_0 / NORMAL attributes, and PNG images, decoded and
 encoded here with ``zlib`` and numpy (8-bit gray, gray + alpha, RGB and
-RGBA, palette at 1, 2, 4 or 8 bits, every filter type; not interlaced).
+RGBA, palette at 1, 2, 4 or 8 bits, every filter type; not interlaced;
+16-bit gray through ``_encode_png`` / ``_decode_png16``, for depth frames).
 Any other image (16-bit or interlaced PNG, JPEG) raises ``ValueError``.
 """
 
@@ -245,6 +246,8 @@ def _png_unfilter(raw: bytes, height: int, row_bytes: int,
     kinds = data[:, 0].astype(np.int32)
     if (kinds > 4).any():
         raise ValueError(f"PNG filter type {int(kinds.max())} is not defined")
+    if not kinds.any():  # every row unfiltered, as _encode_png writes them
+        return data[:, 1:].copy()
     groups = row_bytes // bpp
     filt = data[:, 1:].reshape(height, groups, bpp).astype(np.int32)
     # One row and one group of zeros before the image: the bytes "above"
@@ -267,9 +270,9 @@ def _png_unfilter(raw: bytes, height: int, row_bytes: int,
     return out[1:, 1:].reshape(height, row_bytes).astype(np.uint8)
 
 
-def _decode_png(data: bytes) -> np.ndarray:
-    """A PNG as (H, W, 3) uint8 RGB: gray is repeated, alpha dropped and a
-    palette looked up (what ``convert("RGB")`` of an image library gives)."""
+def _png_parts(data: bytes):
+    """(width, height, bit depth, colour type, palette or None, inflated
+    image data) of a PNG file that is not interlaced."""
     header = None
     palette = None
     idat = []
@@ -285,17 +288,34 @@ def _decode_png(data: bytes) -> np.ndarray:
     width, height, depth, colour, _, _, interlace = header
     if colour not in _PNG_COLOUR:
         raise ValueError(f"PNG colour type {colour} is not defined")
-    name, samples = _PNG_COLOUR[colour]
     if interlace:
         raise ValueError("interlaced (Adam7) PNG images are not supported")
+    return width, height, depth, colour, palette, zlib.decompress(b"".join(idat))
+
+
+def _decode_png16(data: bytes) -> np.ndarray:
+    """A 16-bit gray PNG (what ``_encode_png`` writes of a uint16 image) as
+    (H, W) uint16; any other PNG raises ``ValueError``."""
+    width, height, depth, colour, _, raw = _png_parts(data)
+    if (depth, colour) != (16, 0):
+        raise ValueError(f"not a 16-bit gray PNG image ({depth}-bit "
+                         f"{_PNG_COLOUR[colour][0]})")
+    rows = _png_unfilter(raw, height, 2 * width, 2)
+    return rows.view(">u2").reshape(height, width).astype(np.uint16)
+
+
+def _decode_png(data: bytes) -> np.ndarray:
+    """A PNG as (H, W, 3) uint8 RGB: gray is repeated, alpha dropped and a
+    palette looked up (what ``convert("RGB")`` of an image library gives)."""
+    width, height, depth, colour, palette, raw = _png_parts(data)
+    name, samples = _PNG_COLOUR[colour]
     if depth == 16:
         raise ValueError(f"16-bit {name} PNG images are not supported")
     if depth != 8 and not (colour in (0, 3) and depth in (1, 2, 4)):
         raise ValueError(f"{depth}-bit {name} PNG images are not supported")
     bits_per_pixel = samples * depth
     row_bytes = -(-width * bits_per_pixel // 8)
-    rows = _png_unfilter(zlib.decompress(b"".join(idat)), height, row_bytes,
-                         max(1, bits_per_pixel // 8))
+    rows = _png_unfilter(raw, height, row_bytes, max(1, bits_per_pixel // 8))
     if depth < 8:
         bits = np.unpackbits(rows, axis=1)[:, :width * depth]
         weights = 1 << np.arange(depth - 1, -1, -1)
@@ -496,11 +516,17 @@ def _png_chunk(kind: bytes, body: bytes) -> bytes:
 
 def _encode_png(image: np.ndarray) -> bytes:
     """An (H, W) gray or (H, W, 2 / 3 / 4) image, float in [0, 1] or uint8,
-    as an 8-bit PNG with filter type 0 (None) on every row. A uint8 image
-    is written as it is (the JAX package's writer clips it to [0, 1]
+    as an 8-bit PNG, or an (H, W) uint16 image as a 16-bit gray PNG (its
+    samples big-endian), with filter type 0 (None) on every row. A uint8
+    image is written as it is (the JAX package's writer clips it to [0, 1]
     first, which under NumPy 2 turns it into float and its bytes into 255
     or 0)."""
     arr = np.asarray(image)
+    if arr.dtype == np.uint16:
+        if arr.ndim != 2:
+            raise ValueError(f"cannot encode a uint16 image of shape {arr.shape} "
+                             "as PNG: only (H, W) gray")
+        return _png_bytes(arr.astype(">u2").view(np.uint8), arr.shape[1], 16, 0)
     if arr.dtype != np.uint8:
         arr = (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
     if arr.ndim == 2:
@@ -508,11 +534,15 @@ def _encode_png(image: np.ndarray) -> bytes:
     colour = {1: 0, 2: 4, 3: 2, 4: 6}.get(arr.shape[-1])
     if arr.ndim != 3 or colour is None:
         raise ValueError(f"cannot encode an image of shape {arr.shape} as PNG")
-    height, width, _ = arr.shape
-    rows = np.concatenate(
-        [np.zeros((height, 1), np.uint8), arr.reshape(height, -1)], axis=1)
+    return _png_bytes(arr.reshape(arr.shape[0], -1), arr.shape[1], 8, colour)
+
+
+def _png_bytes(rows: np.ndarray, width: int, depth: int, colour: int) -> bytes:
+    """A PNG file of (H, row bytes) uint8 image rows, unfiltered."""
+    height = rows.shape[0]
+    rows = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
     return (_PNG_SIGNATURE
-            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8,
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth,
                                               colour, 0, 0, 0))
             + _png_chunk(b"IDAT", zlib.compress(rows.tobytes()))
             + _png_chunk(b"IEND", b""))

@@ -1,6 +1,6 @@
 """Host helpers of the PyTorch port (counterpart of the parts of
 ``worldrenderer_tpu/utils/`` ported so far): image <-> tensor conversion
-and image grids (``images``)."""
+and image grids (``images``), and the artifact savers (``saving``)."""
 
 from .images import (
     get_current_timestamp,
@@ -9,6 +9,7 @@ from .images import (
     make_image_grid,
     tensor_to_image,
 )
+from .saving import SaverMixin
 
 __all__ = [
     "tensor_to_image",
@@ -16,4 +17,5 @@ __all__ = [
     "largest_factor_near_sqrt",
     "make_image_grid",
     "get_current_timestamp",
+    "SaverMixin",
 ]

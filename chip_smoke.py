@@ -91,14 +91,16 @@ Phases, one line each; any failure exits nonzero before the last line:
      384x576, uv 2048, the host atlas, raster exact, pos_error_eps auto;
      the footage rendered on the card and handed in for the one name
      ``load_frames``, as the card's machine has no OpenCV), its seconds
-     warm and its parts', K1's launches, kernels and idle share, the
-     re-render against the footage, and 4 frames at 192x288, uv 512,
-     against the CPU (the written files decoded by the port's codec);
-     [texpipe] ``TexturePipeline`` on the six-view ORTHO rig at 768², uv
-     4096 (rgb upscaled x2 and inpainted by the painter, base colour, the
-     normal map rebaked), seconds per call and per modality, painter
-     rounds, kernels and idle share, and the call at 128², uv 256, uv
-     inpainting, against the CPU.
+     traced and warm and its parts', K1's launches, kernels and idle share,
+     K1 bitwise against its plain version on every input shape the call
+     gave it, the re-render against the footage, and 4 frames at 192x288,
+     uv 512, against the CPU (the written files decoded by the port's
+     codec); [texpipe] ``TexturePipeline`` on the six-view ORTHO rig at
+     768², uv 4096 (rgb upscaled x2 and inpainted by the painter, base
+     colour, the normal map rebaked), seconds per call and per modality,
+     painter rounds, kernels and idle share from the one traced call, K1
+     the same way, and the call at 128², uv 256, uv inpainting, against
+     the CPU.
 To stay within 300 s, the CPU comparisons of earlier phases were cut:
 [tiles] none (its paths are held by [attr], [flat], [classic] and
 [diff]), [classic], [texture] and [lod] view 0, [town] frames 0 and 4,
@@ -123,15 +125,12 @@ K2 and K4 as given and with every count 0), or only P1's and P3's wrappers
 and kernels, with the port imported from ROOT, to compare two versions on
 one card (k1_k4_readings, probe_readings).
 
-    python3 chip_smoke.py --app
-
-runs only slice 11's [app] and [texpipe] with their CPU comparisons
-(app_readings).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import functools
 import hashlib
 import importlib
@@ -141,6 +140,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -196,10 +196,11 @@ def profile_ms(fn, reps: int = 3, warm: bool = True, host_ops: bool = True):
     """One torch.profiler trace of ``reps`` calls, after a warm-up call
     unless ``warm`` is False (``fn`` ran warm already): (wall ms per call,
     device-busy ms per call, CUDA kernels per call, top kernels as
-    (name, ms per call, launches per call)). Kernel times are the trace's
-    device self times; the wall time includes the tracer's own cost.
-    ``host_ops`` False traces the device alone: a call of 100,000s of
-    kernels then costs seconds, not minutes, to record and sum."""
+    (name, ms per call, launches per call)). Kernel times are the device
+    spans of the trace's kernels and copies, summed by name from the raw
+    trace (key_averages builds an event tree first: 30 s for a call of
+    150,000 kernels); the wall time includes the tracer's own cost.
+    ``host_ops`` False traces the device alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -215,14 +216,16 @@ def profile_ms(fn, reps: int = 3, warm: bool = True, host_ops: bool = True):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    # Device rows of the trace, less the device spans of profiler ranges.
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in rows) / 1e3 / reps
-    launches = sum(e.count for e in rows) / reps
-    top = [(e.key[:70], e.self_device_time_total / 1e3 / reps, e.count / reps)
-           for e in rows[:6]]
+    # Device events of the trace, less the device spans of profiler ranges.
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    busy = sum(ms for _, (ms, _) in rows) / reps
+    launches = sum(n for _, (_, n) in rows) / reps
+    top = [(name[:70], ms / reps, n / reps) for name, (ms, n) in rows[:6]]
     return wall, busy, launches, top
 
 
@@ -1676,20 +1679,33 @@ def card_vs_cpu(out, ref, views, fields) -> tuple:
 
 
 def log_profile(phase, what, fn, reps: int = 3, warm: bool = True,
-                host_ops: bool = True) -> None:
+                host_ops: bool = True) -> float:
     """A trace of ``reps`` calls of ``fn`` (profile_ms): wall ms, device-busy
-    ms, idle share and CUDA kernels per call, and the top kernels."""
+    ms, idle share and CUDA kernels per call, and the top kernels. Returns
+    the traced wall ms per call."""
     t0 = time.perf_counter()
     wall, busy, n_kernels, top = profile_ms(fn, reps, warm, host_ops)
     what = f"{what} ({time.perf_counter() - t0:.1f} s with the trace's own work)"
     if not n_kernels:
         log(phase, f"{what}: device time not measured (no CUDA kernels in "
             "the trace)")
-        return
+        return wall
     log(phase, f"{what}: traced {wall:.3f} ms wall, device busy {busy:.3f} ms "
         f"({100 * (1 - busy / wall):.1f}% idle), {n_kernels:.0f} CUDA kernels "
         f"per call; top: " + "; ".join(
             f"{name} {ms:.4f} ms x{count:.0f}" for name, ms, count in top[:3]))
+    return wall
+
+
+def k1_logged_check(phase, what, gc, inputs, dims) -> None:
+    """K1 against its plain version, bit for bit, on ``inputs``, with a
+    line that gives their tiles and live chunks."""
+    err = k1_against_plain(gc, inputs, dims)
+    n_vals, tile_h, tile_w, n_ty, n_tx = dims[:5]
+    log(phase, f"{what}: K1 on the render's inputs ({inputs[0].shape[0]} "
+        f"views of {n_ty}x{n_tx} tiles of {tile_h}x{tile_w}, {n_vals} value "
+        f"planes, {int(inputs[3].sum())} live chunks) bitwise equal to the "
+        f"plain version (max abs err {err})")
 
 
 def k1_path_check(phase, what, gb, gc, *args, **kw) -> None:
@@ -1697,11 +1713,36 @@ def k1_path_check(phase, what, gb, gc, *args, **kw) -> None:
     path's render gives it (``gb._k1_inputs(*args, **kw)`` from the phase's
     own positions, triangles, attributes and config on the card)."""
     inputs, dims, _ = gb._k1_inputs(*args, **kw)
-    err = k1_against_plain(gc, inputs, dims)
-    n_vals, tile_h, tile_w, n_ty, n_tx = dims[:5]
-    log(phase, f"{what}: K1 on the render's inputs ({n_ty}x{n_tx} tiles of "
-        f"{tile_h}x{tile_w}, {n_vals} value planes, {int(inputs[3].sum())} "
-        f"live chunks) bitwise equal to the plain version (max abs err {err})")
+    k1_logged_check(phase, what, gc, inputs, dims)
+
+
+@contextlib.contextmanager
+def k1_inputs_kept(gb, kept: dict):
+    """Within the block, each K1 launch through the port's one call site
+    (ops/gbuffer.py's ``gbuffer_tiles``) also keeps its inputs in ``kept``,
+    the first of each shape (K1's dims and the inputs' shapes): what a
+    main path really hands K1, for k1_kept_check. Keeping them moves no
+    data and launches nothing."""
+    real = gb.gbuffer_tiles
+
+    def keep(*args):
+        inputs, dims = args[:4], args[4:]
+        kept.setdefault((dims, tuple(tuple(t.shape) for t in inputs)),
+                        (inputs, dims))
+        return real(*args)
+
+    with mock.patch.object(gb, "gbuffer_tiles", keep):
+        yield
+
+
+def k1_kept_check(phase, gc, kept: dict) -> None:
+    """K1 against its plain version, bit for bit, on every input shape
+    k1_inputs_kept kept (launches outside the main path's counts)."""
+    if not kept:
+        raise AssertionError(f"{phase}: no K1 inputs were kept")
+    for i, (inputs, dims) in enumerate(kept.values()):
+        k1_logged_check(phase, f"K1 input shape {i + 1} of {len(kept)}", gc,
+                        inputs, dims)
 
 
 def town_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
@@ -2562,8 +2603,6 @@ def attr_cpu_ref(pt) -> dict:
 def warp_cpu_ref(pt, src, tgt, mesh, cam, kw) -> dict:
     """[warp]'s CPU run: compute_warp_field, then camera_projection with
     ``kw`` (warp_images=True), its atlas kept."""
-    from unittest import mock
-
     from worldrenderer_tpu_torch.baking import projection as pp
     from worldrenderer_tpu_torch.baking import warp as pw
 
@@ -2755,8 +2794,6 @@ def warp_phase(pt, gb, gc, zc, rk, dev, card, s10) -> dict:
     and uv_pos within 1e-5, baked-mask flips at most 1e-4 of the chart's
     texels, texels within 1e-4 where both are valid. Returns the launches
     per kernel."""
-    from unittest import mock
-
     from worldrenderer_tpu_torch.baking import projection as pp
     from worldrenderer_tpu_torch.baking import warp as pw
 
@@ -2837,8 +2874,6 @@ def paint_phase(pt, gb, gc, zc, rk, dev, card, s10) -> dict:
     score 128² and inpaint 512² on 8x32 tiles (PAINT_CPU_*): the same best
     view, covered-mask flips at most 1e-4 of chart texels, texels within
     1e-4 where both are valid. Returns the launches per kernel."""
-    from unittest import mock
-
     from torch.profiler import record_function
 
     from worldrenderer_tpu_torch.baking import smart_paint as ps
@@ -2975,7 +3010,6 @@ def app_call(footage, work, res, uv, dev, announce=False):
     for this call only, by a function that returns ``footage``: the
     card's machine has no OpenCV to decode a video."""
     import shutil
-    from unittest import mock
 
     from worldrenderer_tpu_torch.pipelines import project_render as ppr
 
@@ -3100,8 +3134,6 @@ def texpipe_call(work, out_dir, uv, mode, dev, marks=None, raster_config=None):
     collects (what, seconds) at each modality's start and at the export.
     ``raster_config`` is the pipeline's (DEFAULT_CONFIG by default).
     Returns (output, pipeline)."""
-    from unittest import mock
-
     from worldrenderer_tpu_torch.pipelines import texture_pipeline as ptp
 
     tp = ptp.TexturePipeline(raster_config=raster_config, device=dev)
@@ -3181,18 +3213,19 @@ class Slice11:
 def app_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
     """Slice 11's application: ``project_and_render`` on the town as the CLI
     runs it (app_call; APP_FRAMES frames at APP_RES, uv APP_UV) on the
-    card. Prints the call's wall seconds warm, its parts' (from wrappers
-    around the module's own names: process_raw, TexturePipeline.__call__,
-    chunk_batch, save_frames, save_depth_frames_16bit), K1's launches, the
-    kernels and idle share from one trace, and the median |re-render -
-    footage| inside the written mask against tests/test_project_render_cli.py's
-    0.1. Then the reduced call on the card against the port's CPU run
-    (decoded with the port's codec): mask flips at most 1e-4 of the
-    foreground, rgb and normal within 1 LSB outside the flipped pixels,
-    depth within 1 LSB of 16 bits, the shaded GLB's texture within 1 LSB
-    at all but 1e-4 of texels. Returns the launches per kernel."""
-    from unittest import mock
-
+    card. The first call is counted and traced (the kernels and idle
+    share), with K1's inputs kept: K1 is then held bitwise to its plain
+    version on each input shape the call gave it (the host atlas, the
+    views, the re-render). A second call gives the wall seconds warm and
+    its parts' (from wrappers around the module's own names: process_raw,
+    TexturePipeline.__call__, chunk_batch, save_frames,
+    save_depth_frames_16bit), and the median |re-render - footage| inside
+    the written mask against tests/test_project_render_cli.py's 0.1. Then
+    the reduced call on the card against the port's CPU run (decoded with
+    the port's codec): mask flips at most 1e-4 of the foreground, rgb and
+    normal within 1 LSB outside the flipped pixels, depth within 1 LSB of
+    16 bits, the shaded GLB's texture within 1 LSB at all but 1e-4 of
+    texels. Returns the launches per kernel."""
     from worldrenderer_tpu_torch import meshproc
     from worldrenderer_tpu_torch.pipelines import project_render as ppr
     from worldrenderer_tpu_torch.pipelines import texture_pipeline as ptp
@@ -3202,11 +3235,15 @@ def app_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
     foot_s = time.perf_counter() - t0
     work = APP_DIR / "app"
 
+    # The first call: counted, traced (device only), K1's inputs kept.
+    kept = {}
     reset_counts(gc, zc, rk)
-    t0 = time.perf_counter()
-    app_call(footage, work, APP_RES, APP_UV, dev, announce=True)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    with k1_inputs_kept(gb, kept):
+        first_s = log_profile("app", "project_and_render, the first call "
+                              "(device only)", lambda: app_call(
+                                  footage, work, APP_RES, APP_UV, dev,
+                                  announce=True),
+                              reps=1, warm=False, host_ops=False) / 1e3
     counts = read_counts(gc, zc, rk)
     if counts["gbuffer_tiles"] < 1:
         raise AssertionError(f"app: project_and_render launched {counts}")
@@ -3243,14 +3280,13 @@ def app_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
     log("app", f"project_and_render, town ({APP_FRAMES} frames at "
         f"{APP_RES[0]}x{APP_RES[1]}, uv {APP_UV}, uv_unwarp, raster exact, "
         f"pos_error_eps auto): {call_s:.3f} s per call warm, {first_s:.3f} s "
-        f"the first ({card}; the footage rendered in {foot_s:.2f} s, the CPU "
+        f"the first, traced ({card}; the footage rendered in {foot_s:.2f} s, the CPU "
         f"runs' inputs in {s11.setup_s:.2f} s); parts "
         f"(s): "
         + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
         + f"; launches {counts}; median |re-render - footage| in the mask "
         f"{median:.4f} over {int(got['mask'].sum())} pixels (limit 0.1)")
-    log_profile("app", "project_and_render (device only)", lambda: app_call(
-        footage, work, APP_RES, APP_UV, dev), reps=1, warm=False, host_ops=False)
+    k1_kept_check("app", gc, kept)
     if not (median < 0.1 and got["mask"].mean() > 0.2):
         raise AssertionError("app: the re-render does not reproduce the footage")
 
@@ -3286,49 +3322,54 @@ def app_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
 
 
 def texpipe_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
-    """Slice 11's texture pipeline: TexturePipeline on the MV-Adapter
-    six-view ORTHO rig (texpipe_inputs at TEXPIPE_RES², texpipe_call at uv
+    """Slice 11's texture pipeline: TexturePipeline on the MV-Adapter six-view
+    ORTHO rig (texpipe_inputs at TEXPIPE_RES², texpipe_call at uv
     TEXPIPE_UV with texpipe_config's budgets: rgb upscaled x2 to 1536² and
-    inpainted by the smart painter, base colour, the normal map rebaked)
-    on the card: seconds per
-    call, per modality, the painter's rounds, K1's launches, the kernels
-    and idle share from one trace. Then the reduced call (TEXPIPE_CPU_RES²,
-    uv TEXPIPE_CPU_UV, inpaint_mode "uv", the upscale on) against the
-    port's CPU run: uv_proj_rgb within 1e-4 at all but 1e-4 of the chart's
-    texels, the PBR GLB's base-colour and normal textures within 1 LSB at
-    all but 1e-4 of texels. (The painter's card run is held to the CPU by
-    [paint].) Returns the launches per kernel."""
+    inpainted by the smart painter, base colour, the normal map rebaked) on
+    the card, in one call: seconds per call (traced) and per modality, the
+    painter's rounds, K1's launches, the kernels and idle share from the
+    call's trace, and K1 bitwise against its plain version on each input
+    shape the call gave it (the 4096² atlas, the views at 768² and 1536²,
+    the painter's renders at 256² and 1024²). Then the reduced call
+    (TEXPIPE_CPU_RES², uv TEXPIPE_CPU_UV, inpaint_mode "uv", the upscale
+    on) against the port's CPU run: uv_proj_rgb within 1e-4 at all but 1e-4
+    of the chart's texels, the PBR GLB's base-colour and normal textures
+    within 1 LSB at all but 1e-4 of texels. (The painter's card run is held
+    to the CPU by [paint].) Returns the launches per kernel."""
     work = APP_DIR / "texpipe"
     t0 = time.perf_counter()
     mesh, rig = texpipe_inputs(pt, dev, TEXPIPE_RES, work)
     cfg = texpipe_config(pt, mesh, rig, TEXPIPE_RES, TEXPIPE_UV)
     inputs_s = time.perf_counter() - t0
 
-    # One call counted and timed (the pipeline's first in the process: the
-    # kernels and the allocator are warm from the earlier phases; PR 11
-    # call 3 read 15.060 s first and 14.150 s second), one traced.
-    marks = []
+    # One call: counted, timed and traced (device only; the tracer adds
+    # about a second to the call's wall), K1's inputs kept. The pipeline's
+    # first in the process: the kernels and the allocator are warm from the
+    # earlier phases.
+    marks, kept, outs = [], {}, []
+
+    def call():
+        outs.append(texpipe_call(work, work / "out", TEXPIPE_UV, "view", dev,
+                                 marks, raster_config=cfg))
+        torch.cuda.synchronize()
+        marks.append(("end", time.perf_counter()))
+
     reset_counts(gc, zc, rk)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out, tp = texpipe_call(work, work / "out", TEXPIPE_UV, "view", dev, marks,
-                           raster_config=cfg)
-    torch.cuda.synchronize()
-    call_s = time.perf_counter() - t0
+    with k1_inputs_kept(gb, kept):
+        call_s = log_profile("texpipe", "TexturePipeline (device only)", call,
+                             reps=1, warm=False, host_ops=False) / 1e3
     counts = read_counts(gc, zc, rk)
     if counts["gbuffer_tiles"] < 1:
         raise AssertionError(f"texpipe: TexturePipeline launched {counts}")
-    ends = [t for _, t in marks[1:]] + [t0 + call_s]
-    spans = ", ".join(f"{name} {end - t:.3f}" for (name, t), end in zip(marks, ends))
+    (out, tp), = outs
+    spans = ", ".join(f"{name} {end - t:.3f}"
+                      for (name, t), (_, end) in zip(marks, marks[1:]))
     rounds = len(tp.smart_painter.history)
     log("texpipe", f"TexturePipeline, ORTHO rig, 6 views at {TEXPIPE_RES}² "
         f"(inputs and the config made in {inputs_s:.2f} s), uv {TEXPIPE_UV}: "
-        f"{call_s:.3f} s per call ({card}); from each modality's start (s): "
-        f"{spans}; "
-        f"painter rounds {rounds}; launches {counts}")
-    log_profile("texpipe", "TexturePipeline (device only)", lambda: texpipe_call(
-        work, work / "out", TEXPIPE_UV, "view", dev, raster_config=cfg),
-        reps=1, warm=False, host_ops=False)
+        f"{call_s:.3f} s per call, traced ({card}); from each modality's "
+        f"start (s): {spans}; painter rounds {rounds}; launches {counts}")
+    k1_kept_check("texpipe", gc, kept)
     rgb = out.uv_proj_rgb
     if not (rounds >= 4 and torch.isfinite(rgb).all()
             and len(glb_textures(out.pbr_model_save_path)) == 2):
@@ -3459,42 +3500,6 @@ def probe_readings(port_root: Path) -> int:
     return 0
 
 
-def app_readings() -> int:
-    """``python3 chip_smoke.py --app``: only slice 11's [app] and [texpipe]
-    (their CPU runs beside them), after the tile kernels and the host's
-    meshproc are built."""
-    global cuda_ms
-    import shutil
-
-    import worldrenderer_tpu_torch as pt
-    from worldrenderer_tpu_torch import meshproc
-    from worldrenderer_tpu_torch.ops import _build
-    from worldrenderer_tpu_torch.ops import gbuffer as gb
-    from worldrenderer_tpu_torch.ops import gbuffer_cuda as gc
-    from worldrenderer_tpu_torch.ops import raster_zid_cuda as rk
-    from worldrenderer_tpu_torch.ops import zattr_cuda as zc
-    from worldrenderer_tpu_torch.probes import cuda_ms
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda")
-    card = smi()
-    log("env", card)
-    _build.build(["gbuffer_tiles", "raster_zid_tiles", "zattr_tiles"])
-    meshproc._get_lib()
-    s11 = Slice11(pt, dev)
-    try:
-        for name, phase in (("app", app_phase), ("texpipe", texpipe_phase)):
-            t0 = time.perf_counter()
-            phase(pt, gb, gc, zc, rk, dev, card, s11)
-            log(name, f"phase ran {time.perf_counter() - t0:.1f} s")
-    finally:
-        s11.refs.close()
-        shutil.rmtree(APP_DIR, ignore_errors=True)
-    return 0
-
-
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--k1-k4":
         return k1_k4_readings(Path(sys.argv[2]))
@@ -3502,8 +3507,6 @@ def main() -> int:
         return probe_readings(Path(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--cpu-refs":
         return cpu_references(sys.argv[2])
-    if sys.argv[1:] == ["--app"]:
-        return app_readings()
     # The port must come from the checkout this script sits in (first on
     # sys.path), never from an installed copy: alone in a directory, the
     # script fails.

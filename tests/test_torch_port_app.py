@@ -17,14 +17,31 @@ Inputs are made with numpy from seeds, or rendered by the port. Scenes:
 application, ``tests/test_pipeline_e2e.py``'s (96², uv 96) for the
 pipeline. Torch and numpy run on one thread.
 
-The limits, the ``[app]`` phase's of ``chip_smoke.py``: the written mask
-flips at most 1e-4 of the foreground; rgb and normal frames within 1 LSB
-at all but 1e-3 of the foreground pixels outside those flips (the
-re-render samples texels that a bake's validity flip changed); depth
-within 1 LSB of 16 bits; baked textures within 1e-4 (1 LSB once written)
-at all but 1e-3 of the reference's baked texels, with validity flips at
-most 3e-4 of them (measured: one texel of 9,216 at a pos_error_eps
-boundary, whose uv padding then moves six texels)."""
+The limits are the ``[app]`` phase's of ``chip_smoke.py`` wherever these
+scenes' readings meet them, and else the least that holds the readings,
+named here. The view G-buffer's positions differ from the JAX package's
+op-by-op ones by up to 2.7e-6 (``test_torch_port_bake.py`` holds them to
+1e-5), so a texel whose reprojection error lies that close to
+``pos_error_eps`` changes validity: one of the 7,643 valid texels of the
+CUSTOM bake (the JAX package's error 0.99974e-3, the port's 1.00023e-3).
+So:
+
+- the written mask flips at most 1e-4 of the foreground (0 read); depth
+  within 1 LSB of 16 bits and normal frames within 1 LSB at every pixel
+  outside the flips;
+- rgb frames within 1 LSB at all but FRAME_SHARE of the foreground outside
+  the flips (5 of 5,217 pixels of one frame, which sample the texels the
+  bake's flip changed);
+- validity flips at most MAX_BAKE_FLIPS texel a bake (1 read in the CUSTOM
+  bake; the ORTHO rig's three bakes are held to 1e-4 of their valid
+  texels, 0 read);
+- baked textures within 1e-4 (1 LSB once written) at all but TEX_SHARE of
+  texels (2 of 9,216 read: a flipped texel and the uv padding it feeds;
+  the ORTHO rig's at 1e-4, 0 read).
+
+The JAX package's Poisson solve runs jitted inside its op-by-op bakes:
+bit for bit its op-by-op result (its adds keep their order; its products
+are by 0, 1, 0.25 and 4, all exact), in less time."""
 
 import io
 import subprocess
@@ -41,6 +58,7 @@ from PIL import Image
 from threadpoolctl import threadpool_limits
 
 import worldrenderer_tpu as wr
+from worldrenderer_tpu.baking import uv as ju
 from worldrenderer_tpu.mesh import uv_sphere_mesh
 from worldrenderer_tpu.pipelines import export_tools as jex
 from worldrenderer_tpu.pipelines import pipeline_view as jpv
@@ -68,6 +86,10 @@ ORTHO_UV = 96
 N_FRAMES = 4
 CAM_FIELDS = ("c2w", "w2c", "proj_mtx", "mvp_mtx", "cam_pos")
 SEQS = ("rgb", "mask", "normal", "depth")
+# The limits that the readings set (module docstring).
+FRAME_SHARE = 1e-3
+MAX_BAKE_FLIPS = 1
+TEX_SHARE = 3e-4
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -219,7 +241,8 @@ def _hold_frames(ours, ref, n):
         assert fg > 1000 and (m != rm).sum() <= 1e-4 * fg
         for seq in ("rgb", "normal"):
             bad = (np.abs(read(ours, seq) - read(ref, seq)) > 1).any(-1) & (m == rm)
-            assert bad.sum() <= 1e-3 * fg, (seq, i, int(bad.sum()))
+            assert bad.sum() <= (FRAME_SHARE if seq == "rgb" else 0) * fg, (
+                seq, i, int(bad.sum()))
 
 
 # ---- _default_upscale --------------------------------------------------------
@@ -412,9 +435,8 @@ def jax_custom(e2e_scene, tmp_path_factory):
 
 def test_texture_pipeline_custom_cameras_matches_jax(e2e_scene, jax_custom, tmp_path):
     """CUSTOM cameras from the JSON, the views as rgb_tensor, uv inpainting:
-    the bake's validity flips at most 3e-4 of the reference's baked
-    texels, uv_proj_rgb within 1e-4 at all but 1e-3 of texels, the shaded
-    GLB's texture within 1 LSB at all but 1e-3 of texels, the UVs equal."""
+    the bake's validity flips at most MAX_BAKE_FLIPS texel, uv_proj_rgb within 1e-4 and the shaded GLB's texture within 1
+    LSB at all but TEX_SHARE of texels, the UVs equal."""
     rec = []
     with _recording(ptp, rec):
         out = ptp.TexturePipeline(device="cpu")(
@@ -423,8 +445,9 @@ def test_texture_pipeline_custom_cameras_matches_jax(e2e_scene, jax_custom, tmp_
     ref, (jrec,) = jax_custom
     (ours,) = rec
     m, rm = _np(ours.uv_proj_mask), _np(jrec.uv_proj_mask)
-    assert rm.sum() > 1000 and (m != rm).sum() <= 3e-4 * rm.sum()
-    _near(_np(out.uv_proj_rgb), np.asarray(ref.uv_proj_rgb), 1e-4, 1e-3, "rgb")
+    assert rm.sum() > 1000 and (m != rm).sum() <= MAX_BAKE_FLIPS, int(
+        (m != rm).sum())
+    _near(_np(out.uv_proj_rgb), np.asarray(ref.uv_proj_rgb), 1e-4, TEX_SHARE, "rgb")
     np.testing.assert_array_equal(_np(out.mesh_v_tex), np.asarray(ref.mesh_v_tex))
     np.testing.assert_array_equal(_np(out.mesh_t_tex_idx),
                                   np.asarray(ref.mesh_t_tex_idx))
@@ -432,11 +455,19 @@ def test_texture_pipeline_custom_cameras_matches_jax(e2e_scene, jax_custom, tmp_
         out.shaded_model_save_path).name == "e2e_shaded.glb"
     (got,), (want,) = (_glb_images(out.shaded_model_save_path),
                        _glb_images(ref.shaded_model_save_path))
-    _near(got, want, 1, 1e-3, "shaded GLB")
+    _near(got, want, 1, TEX_SHARE, "shaded GLB")
 
 
 def _host(x):
     return None if x is None else _np(x)
+
+
+def _jitted(fn):
+    """``fn`` run with jit on inside a ``jax.disable_jit()`` block."""
+    def call(*a, **k):
+        with jax.disable_jit(False):
+            return fn(*a, **k)
+    return call
 
 
 def _fake_projection(calls, out_type, wrap):
@@ -481,7 +512,8 @@ def test_texture_pipeline_ortho_pbr_matches_jax(e2e_scene, tmp_path):
     for the rebake: every call's images within 1e-6 (the rebaked normals
     within 5e-4), cameras within 1e-6 and arguments equal; ORM's channel 0
     set to 1; the PBR GLB's geometry equal and its three textures within 1
-    LSB."""
+    LSB. (The bake and the passes themselves are held against the JAX
+    package's in test_texture_pipeline_ortho_poisson_reprojection_matches_jax.)"""
     from worldrenderer_tpu.baking.projection import CameraProjectionOutput as JOut
 
     from worldrenderer_tpu_torch.baking.projection import CameraProjectionOutput
@@ -537,6 +569,37 @@ def test_texture_pipeline_ortho_pbr_matches_jax(e2e_scene, tmp_path):
     assert (got[1][..., 0] == 255).all()
 
 
+def test_texture_pipeline_ortho_poisson_reprojection_matches_jax(e2e_scene, tmp_path):
+    """The real ORTHO bake and both Poisson reprojection passes (views 4-5,
+    then 0-3; from_scratch=False on the baked texture,
+    pb_keep_original_border=True), base colour only (six seeded views at
+    48²), uv 64: the smallest rig that runs both passes, against the JAX
+    package's run op by op, at the ``[texpipe]`` phase's limits: each of
+    the three camera_projection outputs' validity flips at most 1e-4 of
+    the reference's valid texels and its texture within 1e-4 at all but
+    1e-4 of texels, and the PBR GLB's texture within 1 LSB (0 read in
+    each)."""
+    kw = dict(mesh_path=str(e2e_scene["glb"]), save_name="poisson", uv_size=64,
+              keep_original_transform=False,
+              base_color_path=str(e2e_scene["dir"] / "base"),
+              poisson_reprojection=True)
+    ours, ref = [], []
+    with _recording(ptp, ours):
+        out = ptp.TexturePipeline(device="cpu")(save_dir=str(tmp_path / "port"), **kw)
+    with jax.disable_jit(), _recording(jtp, ref), mock.patch.object(
+            ju, "poisson_blend", _jitted(ju.poisson_blend)):
+        jout = jtp.TexturePipeline()(save_dir=str(tmp_path / "jax"), **kw)
+    assert len(ours) == len(ref) == 3
+    for i, (o, r) in enumerate(zip(ours, ref)):
+        m, rm = _np(o.uv_proj_mask), np.asarray(r.uv_proj_mask)
+        assert rm.sum() > 100 and (m != rm).sum() <= 1e-4 * rm.sum(), (
+            i, int((m != rm).sum()))
+        _near(_np(o.uv_proj), np.asarray(r.uv_proj), 1e-4, 1e-4, f"bake {i}")
+    (got,), (want,) = (_glb_images(out.pbr_model_save_path),
+                       _glb_images(jout.pbr_model_save_path))
+    _near(got, want, 1, 0, "PBR GLB")
+
+
 def test_texture_pipeline_view_inpaint_wiring(e2e_scene, tmp_path):
     """inpaint_mode="view" hands the bake to the smart painter with the
     config's values and the pipeline's device, and the painter's texture
@@ -587,10 +650,10 @@ def test_project_and_render_matches_jax(cli_scene, jax_app, tmp_path):
     ref = jax_app / "exact"
     _hold_frames(out, ref, N_FRAMES)
     _near(_read(out / "debug" / "uv_proj.png"), _read(ref / "debug" / "uv_proj.png"),
-          1, 1e-3, "uv_proj.png")
+          1, TEX_SHARE, "uv_proj.png")
     (got,), (want,) = (_glb_images(out / "projected_shaded.glb"),
                        _glb_images(ref / "projected_shaded.glb"))
-    _near(got, want, 1, 1e-3, "shaded GLB")
+    _near(got, want, 1, TEX_SHARE, "shaded GLB")
     for i in range(N_FRAMES):
         rgb = _read(out / "rgb" / f"rgb_{i:05d}.png") / 255.0
         mask = _read(out / "mask" / f"mask_{i:05d}.png") > 0
@@ -600,12 +663,12 @@ def test_project_and_render_matches_jax(cli_scene, jax_app, tmp_path):
 def _hold_geometry(ours, ref):
     """A run without footage writes depth and normal frames only; they are
     the geometry of the reference's run: depth within 1 LSB, normals
-    within 1 LSB at all but 1e-3 of pixels."""
+    within 1 LSB at every pixel."""
     assert not (ours / "rgb").exists() and not (ours / "mask").exists()
     for i in range(N_FRAMES):
-        for seq, share in (("depth", 0), ("normal", 1e-3)):
+        for seq in ("depth", "normal"):
             name = f"{seq}/{seq}_{i:05d}.png"
-            _near(_read(ours / name), _read(ref / name), 1, share, name)
+            _near(_read(ours / name), _read(ref / name), 1, 0, name)
 
 
 def test_project_and_render_fast_matches_jax(cli_scene, jax_app, tmp_path):
@@ -703,6 +766,25 @@ def test_project_and_render_needs_camera_json(cli_scene, tmp_path):
             par(output_dir=tmp_path / "out", **kw, **extra)
 
 
+def test_auto_near_far_matches_jax(cli_scene):
+    """``_auto_near_far`` (whose result the JAX package's
+    project_and_render discards; the port's does not call it) equals the
+    JAX package's on the scene's mesh and camera path, and both return the
+    given near / far for a mesh without vertices."""
+    from types import SimpleNamespace
+
+    jm = wr.load_mesh(str(cli_scene["glb"]))
+    pm = pt.load_mesh(str(cli_scene["glb"]), device="cpu")
+    cam = _orbit()
+    ours = ppr._auto_near_far(pm, _port_cam(cam), 0.1, 10.0)
+    assert ours == jpr._auto_near_far(jm, cam, 0.1, 10.0)
+    assert 0.1 < ours[0] < ours[1] < 10.0
+    assert ppr._auto_near_far(SimpleNamespace(v_pos=torch.zeros((0, 3))),
+                              _port_cam(cam), 0.5, 7.0) == (0.5, 7.0)
+    assert jpr._auto_near_far(SimpleNamespace(v_pos=jnp.zeros((0, 3))),
+                              cam, 0.5, 7.0) == (0.5, 7.0)
+
+
 def test_parse_args_match_jax():
     """The CLI's arguments and defaults are the JAX package's, plus
     ``--device`` (default cuda)."""
@@ -734,7 +816,7 @@ def test_project_view_to_view_matches_jax(cli_scene, tmp_path):
     """Frame 0 projected and rendered from camera 1 (90 degrees on, so much
     of view 1 was not seen): the masked L1 error within 1e-4 relative of
     the JAX package's (op by op), and the three written images within 1
-    LSB at all but 1e-3 of pixels."""
+    LSB at every pixel."""
     errs = {}
     for name, fn, extra in (("jax", jpv.project_view_to_view, {}),
                             ("port", ppv.project_view_to_view, {"device": "cpu"})):
@@ -748,7 +830,7 @@ def test_project_view_to_view_matches_jax(cli_scene, tmp_path):
     np.testing.assert_allclose(errs["port"], errs["jax"], rtol=1e-4)
     for what in ("source", "reprojected", "target"):
         _near(_read(tmp_path / "port" / f"{what}_00000.png"),
-              _read(tmp_path / "jax" / f"{what}_00000.png"), 1, 1e-3, what)
+              _read(tmp_path / "jax" / f"{what}_00000.png"), 1, 0, what)
 
 
 def test_export_tools_match_jax(cli_scene, tmp_path, monkeypatch):

@@ -55,7 +55,7 @@ def _port_cam(jc):
 @pytest.mark.parametrize("n_in, res", [(512, 64), (512, 128), (48, 96), (64, 64)])
 def test_resize_matches_jax(n_in, res):
     img = np.random.default_rng(n_in + res).random((2, n_in, n_in, 3)).astype(np.float32)
-    ours = pw._resize(torch.from_numpy(img), res)
+    ours = pw.resize_hw(torch.from_numpy(img), res, res)
     assert tuple(ours.shape) == (2, res, res, 3)
     for v in range(2):
         np.testing.assert_allclose(_np(ours[v]), np.asarray(jw._resize(

@@ -131,12 +131,6 @@ def resize_hw(img: torch.Tensor, height: int, width: int,
     return img
 
 
-def _resize(img: torch.Tensor, res: int) -> torch.Tensor:
-    """Antialiased linear resize of (..., H, W, C) to (..., res, res, C),
-    as ``jax.image.resize(method="linear", antialias=True)``."""
-    return resize_hw(img, res, res)
-
-
 def compute_warp_field(
     src_images,
     tgt_images,
@@ -167,8 +161,8 @@ def compute_warp_field(
     delta = torch.zeros((src.shape[0],) + verts0.shape, device=dev)
     for res in optim_res:
         res = int(res)
-        src_r = _resize(src[..., :3], res)
-        tgt_r = _resize(tgt[..., :3], res)
+        src_r = resize_hw(src[..., :3], res, res)
+        tgt_r = resize_hw(tgt[..., :3], res, res)
         delta = delta.detach().requires_grad_(True)
         opt = torch.optim.Adam([delta], lr=lr)
         for _ in range(optim_step_per_res):

@@ -42,7 +42,9 @@ __all__ = ["project_and_render", "main"]
 def _auto_near_far(mesh: TexturedMesh, cam: Camera, near0: float, far0: float):
     """Near / far from the mesh <-> camera distance span with 5% padding;
     ``(near0, far0)`` when the cameras have no c2w or the mesh no vertex.
-    The vertices and camera positions are copied to the host."""
+    The vertices and camera positions are copied to the host. (The JAX
+    package's ``project_and_render`` computes it and never reads it;
+    ``project_and_render`` here does not call it.)"""
     if cam.c2w is None or mesh.v_pos.shape[0] == 0:
         return near0, far0
     cam_pos = cam.c2w[:, :3, 3].detach().cpu().numpy()
@@ -113,7 +115,7 @@ def project_and_render(
         frames_np = load_frames(video_path, 0, frame_step, max_frames)
         num_views_all, video_h, video_w = frames_np.shape[:3]
 
-    cam_all, clip_near, clip_far = load_camera_from_json(
+    cam_all, _, _ = load_camera_from_json(
         camera_json, video_h, video_w,
         max_views=max_frames if max_frames > 0 else 10**9,
         axis_convert=axis_convert, device=dev,
@@ -190,9 +192,9 @@ def project_and_render(
         mesh = load_mesh(path, default_uv_size=uv_size, merge_vertices=True,
                          device=dev)
 
-    # The JAX package computes this span and then renders with the camera
-    # JSON's own near / far: the result is unused there too.
-    clip_near, clip_far = _auto_near_far(mesh, cam, clip_near, clip_far)
+    # The JAX package computes _auto_near_far's span here and then renders
+    # with the camera JSON's own near / far: the result is unused, so the
+    # port does not pay for its host copies.
 
     # mm-scale 16-bit depth normalization.
     norm_range = 65.535

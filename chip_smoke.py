@@ -100,7 +100,17 @@ Phases, one line each; any failure exits nonzero before the last line:
      colour, the normal map rebaked), seconds per call and per modality,
      painter rounds, kernels and idle share from the one traced call, K1
      the same way, and the call at 128², uv 256, uv inpainting, against
-     the CPU.
+     the CPU;
+ 11. slice 12's multi-device paths on a mesh of the one card, the same
+     way: [shard] bench.py:1013's bake (uv 4096, 6 views at 768²) through
+     ``camera_projection(device_mesh=..., texel_chunks=8)``, its seconds,
+     peak memory at 8 chunks against 1, kernels and idle share, K1 on its
+     inputs and the result bit for bit the unsharded bake;
+     ``render_views_sharded`` and ``SweepRunner`` (two bucket-padded
+     jobs, resumed) bitwise against ``render()``; ``texture_fit_step``
+     against the plain Adam loop; the validate gates (K1 against K3, the
+     degenerate probes) with their verdicts; ``measure_kernel_mfu``. No
+     process group is started.
 To stay within 300 s, the CPU comparisons of earlier phases were cut:
 [tiles] none (its paths are held by [attr], [flat], [classic] and
 [diff]), [classic], [texture] and [lod] view 0, [town] frames 0 and 4,
@@ -125,6 +135,14 @@ K2 and K4 as given and with every count 0), or only P1's and P3's wrappers
 and kernels, with the port imported from ROOT, to compare two versions on
 one card (k1_k4_readings, probe_readings).
 
+    python3 chip_smoke.py --multi-card
+
+runs the multi-device paths across every card of the machine (a machine
+of four H100s): the sharded bake over all cards against card
+0's, the view split against ``render()``, and the data-parallel fit in
+one nccl process per card (``--fit-rank``) against one process
+(multi_card_readings).
+
 """
 
 from __future__ import annotations
@@ -145,39 +163,16 @@ from unittest import mock
 import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet): 67 TFLOP/s fp32 outside
-# the tensor cores, counting each fused multiply-add as two operations, and
-# HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-# K1 is built with -fmad=false, so each multiply, add and compare is an
-# fp32 instruction of its own, and the card issues at most one per lane per
-# cycle: half the FMA-counted peak. Compares are counted at that rate too,
-# which keeps the bound a least time.
-PEAK_FP32_INSTR = PEAK_FP32_FLOPS / 2
-# fp32 instructions per (entry, pixel) pair in K1's scan. A thread's pixels
-# share a row, so each plane's b * ly is one multiply per (entry, row) and a
-# pair costs four planes of (a multiply and two adds); the best z starts
-# just above 1, so z < zbest also tests z <= 1 and a pair makes five
-# compares (e0, e1, e2 >= 0, z >= -1, z < zbest).
-K1_OPS_PER_PAIR = 17
-# fp32 instructions per (entry, row of a tile's pixels) in K1's and K3's
-# scans: the four b-terms.
-OPS_PER_ENTRY_ROW = 4
-# fp32 instructions per (entry, column of a tile's pixels) in K2's and K4's
-# scans: the four a-terms a * lx.
-OPS_PER_ENTRY_COL = 4
+# The H100's peaks and the kernels' instruction counts (PEAK_FP32_FLOPS,
+# PEAK_FP32_INSTR, PEAK_BYTES, K1_OPS_PER_PAIR, OPS_PER_ENTRY_ROW,
+# OPS_PER_ENTRY_COL, TILE_OPS_PER_PAIR) and K1's bound (k1_bound_ms) are the
+# port's worldrenderer_tpu_torch/utils/roofline.py's, bound to these names by
+# main() once it has found the port beside this script.
+
 # Shared memory serves 32 banks of 4 bytes per clock on each of the 132
 # SMs; the clock is the card's maximum SM clock (nvidia-smi clocks.max.sm).
 SMEM_BYTES_PER_CLOCK_SM = 128
 N_SMS = 132
-# fp32 instructions per (entry, pixel) pair in K2's, K3's and K4's scans:
-# four planes of (an FMA and an add) and five compares (e0, e1, e2 >= 0,
-# z >= -1, z against the best z, which starts at or just above 1, so that
-# compare also tests z <= 1). K2's and K4's planes are fma(b, ly, a*lx) + g
-# with a * lx shared along a column (OPS_PER_ENTRY_COL); K3's are
-# fma(lx, a, ly*b) + g with ly * b shared along a row (OPS_PER_ENTRY_ROW).
-TILE_OPS_PER_PAIR = 13
 
 
 def log(phase: str, msg: str) -> None:
@@ -579,29 +574,6 @@ def k1_against_plain(gc, inputs, dims) -> float:
             raise AssertionError(f"K1 {name} differs from the plain version "
                                  f"(max abs {err})")
     return err
-
-
-def k1_bound_ms(inputs, dims) -> tuple:
-    """Least time the card could take for K1's work on these inputs: the
-    larger of the live (entry, pixel) pairs' unfused fp32 instructions (and
-    the b-terms of each live entry and tile row) over the card's fp32
-    instruction rate and the bytes it must move (each live record and id
-    read once, each output written once) over the memory rate. With
-    ``bin_subtile`` bands (dims' seventh entry) a live chunk is a band's
-    and meets the band's tile_h / sub rows."""
-    recs, ids, start, nch = inputs
-    n_vals, th, tw, n_ty, n_tx, c = dims[:6]
-    rows = th // (dims[6] if len(dims) > 6 else 1)
-    live_chunks = int(nch.sum())
-    ops = live_chunks * c * rows * (tw * K1_OPS_PER_PAIR + OPS_PER_ENTRY_ROW)
-    ops_ms = ops / PEAK_FP32_INSTR * 1e3
-    n_out = recs.shape[0] * n_ty * th * n_tx * tw
-    nbytes = (live_chunks * c * (recs.shape[1] + 1) * 4 + 2 * nch.numel() * 4
-              + n_out * (2 + n_vals) * 4)
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
-    if ops_ms >= bytes_ms:
-        return ops_ms, "operations", live_chunks
-    return bytes_ms, "bytes", live_chunks
 
 
 def relaid_runs(start, nch):
@@ -2335,7 +2307,7 @@ def bake_full_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
         raise AssertionError(f"bake_full: launches {counts}")
     if not torch.isfinite(out.uv_attr_blend).all():
         raise AssertionError("bake_full: the texture is not finite")
-    bake_ms = cuda_ms(bake, 2)
+    bake_ms = cuda_ms(bake, 1)
     split = stage_split(bake)
 
     # The solve's own inputs, from the card's blend sums.
@@ -3403,6 +3375,416 @@ def texpipe_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
     return {"gbuffer_tiles": counts["gbuffer_tiles"]}
 
 
+SHARD_UV, SHARD_RES, SHARD_CHUNKS = 4096, 768, 8
+SWEEP_RES = 512
+FIT_STEPS, FIT_LR = 3, 0.01
+
+
+def shard_scene(pt, dev):
+    """bench.py:1013 bench_bake4k's bake: uv_sphere_mesh(65, 129) with a
+    SHARD_UV² texture of 0.25, 6 views at SHARD_RES² (elevation 20,
+    distance 2.7, fovy 40) of the mesh under a seeded random texture, and
+    the config bench.py:941 _projection_auto_cfg sizes for the atlas and
+    the views."""
+    verts, faces, uv = pt.uv_sphere_mesh(65, 129)
+    mesh = pt.mesh_from_arrays(
+        verts, faces, v_tex=uv, t_tex_idx=faces,
+        texture=np.full((SHARD_UV, SHARD_UV, 3), 0.25, np.float32), device=dev)
+    cam = pt.get_camera(elevation_deg=20.0, distance=2.7, fovy_deg=40.0,
+                        num_views=6, near=0.1, far=10.0, device=dev)
+    seeded = torch.rand((1024, 1024, 3),
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    views = pt.render(mesh._replace(texture=seeded), cam, SHARD_RES, SHARD_RES,
+                      device=dev).attr
+    cfg = pt.auto_fast_config(
+        atlas_clip(mesh), mesh.t_tex_idx, (SHARD_UV, SHARD_UV),
+        extra_probes=[(pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx),
+                       mesh.t_pos_idx, (SHARD_RES, SHARD_RES))])
+    return mesh, cam, views, cfg
+
+
+def peak_gib(fn) -> float:
+    """Peak memory allocated on the card by one call of ``fn``, in GiB
+    above what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def shard_bake_check(pt, gb, gc, zc, rk, dev, card) -> int:
+    """The texel-sharded bake at bench_bake4k's width on a mesh of the one
+    card, texel_chunks SHARD_CHUNKS: K1's launches in one counted call
+    (its inputs kept and each shape held bitwise to the plain version),
+    seconds per bake warm, peak memory at SHARD_CHUNKS chunks against 1,
+    kernels and idle share from one traced call, and the result against
+    the port's unsharded camera_projection on the card (mask and values bit
+    for bit). Returns K1's launches."""
+    from worldrenderer_tpu_torch.baking import projection as pp
+    from worldrenderer_tpu_torch.parallel import make_device_mesh
+
+    mesh, cam, views, cfg = shard_scene(pt, dev)
+    dm = make_device_mesh(axis_names=("uv",))
+    kw = dict(uv_size=SHARD_UV, poisson_blending=False,
+              iou_rejection_threshold=None, raster_config=cfg)
+
+    def bake(chunks=SHARD_CHUNKS):
+        return pp.camera_projection(views, mesh, cam, device_mesh=dm,
+                                    texel_chunks=chunks, **kw)
+
+    kept = {}
+    reset_counts(gc, zc, rk)
+    with k1_inputs_kept(gb, kept):
+        out = bake()
+    counts = read_counts(gc, zc, rk)
+    # the atlas and the view renders, once each on the one device
+    if counts["gbuffer_tiles"] != 2 or sum(counts.values()) != 2:
+        raise AssertionError(f"shard: the sharded bake launched {counts}")
+    bake_ms = cuda_ms(bake, 1)
+    peak8 = peak_gib(bake)
+    peak1 = peak_gib(lambda: bake(1))
+    log("shard", f"sharded camera_projection, uv {SHARD_UV}², 6 views at "
+        f"{SHARD_RES}², {mesh.num_faces} triangles, mesh {dict(dm.shape)}, "
+        f"texel_chunks {SHARD_CHUNKS}: {bake_ms / 1e3:.4f} s per bake warm "
+        f"({card}); K1 launches {counts['gbuffer_tiles']}; peak memory "
+        f"{peak8:.3f} GiB at texel_chunks {SHARD_CHUNKS} against {peak1:.3f} "
+        f"GiB at 1 (torch.cuda.max_memory_allocated above the inputs)")
+    log_profile("shard", "one sharded bake (device only)", bake, reps=1,
+                warm=False, host_ops=False)
+    k1_kept_check("shard", gc, kept)
+    ref = pp.camera_projection(views, mesh, cam, device=dev, **kw)
+    mask_diff = int((out.uv_proj_mask != ref.uv_proj_mask).sum())
+    bits = {f: int((getattr(out, f).view(torch.int32)
+                    != getattr(ref, f).view(torch.int32)).sum())
+            for f in ("uv_proj", "uv_depth_grad", "uv_aoi_cos")}
+    baked = int(out.uv_proj_mask.sum())
+    log("shard", f"against the unsharded camera_projection on the card: mask "
+        f"diff {mask_diff} of {baked} texels baked, elements whose bits "
+        f"differ {bits}")
+    if mask_diff or any(bits.values()) or baked < 0.2 * SHARD_UV ** 2:
+        raise AssertionError("shard: the sharded bake differs from the unsharded")
+    return counts["gbuffer_tiles"]
+
+
+def shard_sweep_checks(pt, gc, zc, rk, dev, card) -> int:
+    """render_views_sharded on the headline over the one-card mesh against
+    render() bit for bit; SweepRunner on two bucket-padded jobs (the
+    headline heightfield, bench_bake4k's sphere at 6 views of SWEEP_RES²):
+    each G-buffer bitwise equal to the unpadded render(), the PNGs written,
+    seconds per job, and a second runner skipping both. Returns K1's
+    launches."""
+    import shutil
+
+    from worldrenderer_tpu_torch.parallel import make_device_mesh, runner, sweep
+
+    dm = make_device_mesh()
+    head, hcam = headline_scene(pt, dev)
+    hcfg = headline_cfg(pt, head, hcam)
+    kw = dict(render_attr=False, render_depth=True, render_normal=True,
+              raster_config=hcfg)
+    reset_counts(gc, zc, rk)
+    out = sweep.render_views_sharded(head, hcam, 512, 512, dm, **kw)
+    launches = read_counts(gc, zc, rk)["gbuffer_tiles"]
+    ref = pt.render(head, hcam, 512, 512, device=dev, **kw)
+    same = all(same_bits(getattr(out, f), getattr(ref, f))
+               for f in ("mask", "pos", "depth", "normal"))
+    log("shard", f"render_views_sharded, headline over {dict(dm.shape)}: K1 "
+        f"launches {launches}, bitwise equal to render() {same}")
+    if not same or launches < 1:
+        raise AssertionError("shard: render_views_sharded differs from render()")
+
+    verts, faces, uv = pt.uv_sphere_mesh(65, 129)
+    sphere = pt.mesh_from_arrays(verts, faces, device=dev)
+    scam = pt.get_camera(elevation_deg=20.0, distance=2.7, fovy_deg=40.0,
+                         num_views=6, near=0.1, far=10.0, device=dev)
+    scfg = headline_cfg(pt, sphere, scam, SWEEP_RES)
+    jobs = [runner.RenderJob("headline", head, hcam, 512, 512, kw),
+            runner.RenderJob("sphere", sphere, scam, SWEEP_RES, SWEEP_RES,
+                             dict(kw, raster_config=scfg))]
+    work = APP_DIR / "sweep"
+    shutil.rmtree(work, ignore_errors=True)
+    run = runner.SweepRunner(str(work), device_mesh=dm)
+    reset_counts(gc, zc, rk)
+    t0 = time.perf_counter()
+    results = run.run(jobs)
+    sweep_s = time.perf_counter() - t0
+    launches += read_counts(gc, zc, rk)["gbuffer_tiles"]
+    lines = []
+    for job, res in zip(jobs, results):
+        padded = runner.pad_mesh_to_bucket(job.mesh)
+        want = pt.render(job.mesh, job.cam, job.height, job.width, device=dev,
+                         **job.render_kwargs)
+        same = all(np.array_equal(res[f], getattr(want, f).cpu().numpy())
+                   for f in ("mask", "pos", "depth", "normal"))
+        pngs = len(list((work / job.name).rglob("*.png")))
+        lines.append(f"{job.name} ({job.mesh.num_faces} -> {padded.num_faces} "
+                     f"faces) bitwise equal to the unpadded render() {same}, "
+                     f"{pngs} PNGs")
+        if not same or pngs != 3 * len(job.cam):
+            raise AssertionError(f"shard: sweep job {job.name} failed")
+    skipped = runner.SweepRunner(str(work), device_mesh=dm).run(jobs)
+    log("shard", f"SweepRunner, 2 jobs bucket-padded: {sweep_s / 2:.4f} s per "
+        f"job ({card}, PNG writes overlapped); " + "; ".join(lines)
+        + f"; a second runner skips both {skipped == [None, None]}")
+    if skipped != [None, None]:
+        raise AssertionError("shard: the second runner did not resume")
+    return launches
+
+
+def shard_fit_check(pt, gc, zc, rk, dev, card) -> int:
+    """texture_fit_step, FIT_STEPS Adam steps (lr FIT_LR) on [diff]'s config4
+    fit scene, against the plain loop of fit_loss and torch.optim.Adam on
+    the same keywords: the texture's and the loss's largest differences and
+    elements whose bits differ (the texture gradient's scatter runs in
+    atomic adds, whose order can vary). Returns K1's launches."""
+    from worldrenderer_tpu_torch.parallel import sweep
+
+    mesh, cam, cfg, _, target = fit_scene(pt, dev)
+    kw = dict(render_attr=True, render_depth=False, render_normal=False,
+              attr_background=0.5, raster_config=cfg, device=dev)
+    tex = torch.full_like(mesh.texture, 0.5).requires_grad_(True)
+    opt = torch.optim.Adam([tex], lr=FIT_LR)
+    step = sweep.make_texture_fit_step(opt, FIT_RES, FIT_RES, raster_config=cfg)
+    reset_counts(gc, zc, rk)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(FIT_STEPS):
+        tex, _, loss = step(tex, None, mesh, cam, target)
+        losses.append(float(loss))
+    fit_s = (time.perf_counter() - t0) / FIT_STEPS
+    launches = read_counts(gc, zc, rk)["gbuffer_tiles"]
+    plain = torch.full_like(mesh.texture, 0.5).requires_grad_(True)
+    popt = torch.optim.Adam([plain], lr=FIT_LR)
+    plain_losses = []
+    for _ in range(FIT_STEPS):
+        popt.zero_grad(set_to_none=True)
+        loss = fit_loss(pt, mesh, cam, target, plain, kw)
+        loss.backward()
+        popt.step()
+        plain_losses.append(float(loss.detach()))
+    err = float((tex.detach() - plain.detach()).abs().max())
+    loss_err = max(abs(a - b) / b for a, b in zip(losses, plain_losses))
+    log("shard", f"texture_fit_step, config4 at {FIT_RES}², {FIT_STEPS} Adam "
+        f"steps: {fit_s:.4f} s per step ({card}), K1 launches {launches}, "
+        f"loss {losses[0]:.6f} -> {losses[-1]:.6f}; against the plain loop: "
+        f"texture max abs diff {err}, bits differ "
+        f"{bits_differ(tex.detach(), plain.detach())}, loss rel diff {loss_err}")
+    if not (err <= 1e-5 and loss_err <= 1e-6 and losses[-1] < losses[0]):
+        raise AssertionError("shard: texture_fit_step differs from the plain loop")
+    return launches
+
+
+def shard_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
+    """Slice 12's multi-device paths on the one card: the texel-sharded
+    4096² bake (shard_bake_check), render_views_sharded and SweepRunner
+    (shard_sweep_checks), texture_fit_step (shard_fit_check), the validate
+    gates (K1 against K3: precision_gate; degenerate_probes) with their
+    verdicts, and measure_kernel_mfu on the headline: K1's traced ms per
+    frame beside its bound. No process group is started. Returns the
+    launches per kernel."""
+    from worldrenderer_tpu_torch.utils import roofline, validate
+
+    k1 = shard_bake_check(pt, gb, gc, zc, rk, dev, card)
+    k1 += shard_sweep_checks(pt, gc, zc, rk, dev, card)
+    k1 += shard_fit_check(pt, gc, zc, rk, dev, card)
+
+    reset_counts(gc, zc, rk)
+    gate = validate.precision_gate(quiet=True, device=dev)
+    probes = validate.degenerate_probes(quiet=True, device=dev)
+    counts = read_counts(gc, zc, rk)
+    log("shard", f"precision_gate (K1 vs K3, 512²): ok {gate['ok']}; "
+        + "; ".join(gate["scenes"]))
+    log("shard", f"degenerate_probes (256²): ok {probes['ok']}; "
+        + "; ".join(probes["probes"]) + f"; launches of both {counts}")
+    if not (gate["ok"] and probes["ok"]) or not counts["zattr_tiles_vpu"]:
+        raise AssertionError("shard: a validate gate failed")
+
+    mesh, cam = headline_scene(pt, dev)
+    cfg = headline_cfg(pt, mesh, cam)
+    pos = pt.get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+    work = roofline.kernel_counts(pos, mesh.t_pos_idx, (512, 512), cfg)
+    mfu = roofline.measure_kernel_mfu(
+        lambda i: pt.render(mesh, cam, 512, 512, render_attr=False,
+                            render_depth=False, render_normal=True,
+                            raster_config=cfg, device=dev), work)
+    inputs, dims, _ = gb._k1_inputs(pos, mesh.t_pos_idx, None, 512, 512, cfg)
+    bound, by, _ = k1_bound_ms(inputs, dims)
+    if mfu is None:
+        raise AssertionError("shard: measure_kernel_mfu found no K1 in its trace")
+    log("shard", f"measure_kernel_mfu, headline ({card}): K1 "
+        f"{mfu['kernel_ms_per_frame']:.4f} ms per frame (6 views) from the "
+        f"trace, bound {bound:.5f} ms by {by}; issued "
+        f"{mfu['issued_gop_per_frame']:.3f} G fp32 instructions "
+        f"({100 * mfu['util_issued']:.1f}% of the rate), useful "
+        f"{mfu['useful_gop_per_frame']:.3f} G ({100 * mfu['util_useful']:.1f}%), "
+        f"floor ratio {mfu['floor_ratio']:.2f}")
+    return {"gbuffer_tiles": k1 + counts["gbuffer_tiles"],
+            "zattr_tiles_vpu": counts["zattr_tiles_vpu"]}
+
+
+MULTI_CHUNKS = 2
+FIT_RANK_STEPS = 2
+
+
+def fit_rank(rank: int, world: int, port: int, out: str) -> int:
+    """``python3 chip_smoke.py --fit-rank RANK WORLD PORT OUT``: one rank of
+    multi_card_readings' data-parallel fit, on card RANK: an nccl group of
+    WORLD processes at tcp://localhost:PORT, FIT_RANK_STEPS texture_fit_step
+    calls on [diff]'s config4 fit scene (each rank renders its block of
+    the 4 views), rank 0 saving the texture and the losses to OUT."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import worldrenderer_tpu_torch as pt
+    from worldrenderer_tpu_torch.parallel import dist, sweep
+
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.initialize_distributed(f"localhost:{port}", world, rank, device=dev)
+    mesh, cam, cfg, _, target = fit_scene(pt, dev)
+    tex = torch.full_like(mesh.texture, 0.5).requires_grad_(True)
+    opt = torch.optim.Adam([tex], lr=FIT_LR)
+    step = sweep.make_texture_fit_step(opt, FIT_RES, FIT_RES, raster_config=cfg)
+    losses = []
+    for _ in range(FIT_RANK_STEPS):
+        tex, _, loss = step(tex, None, mesh, cam, target)
+        losses.append(float(loss))
+    dist.barrier()
+    if rank == 0:
+        np.savez(out, tex=tex.detach().cpu().numpy(), losses=np.asarray(losses))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def multi_card_readings() -> int:
+    """``python3 chip_smoke.py --multi-card``: the multi-device paths across
+    every card of the machine (four on a four-card machine): the
+    sharded bake of [shard] (uv 4096, 6 views at 768²) over a mesh of all
+    cards at texel_chunks MULTI_CHUNKS against the same bake on a mesh of
+    card 0 (bits, seconds, each card's peak memory); render_views_sharded
+    of the headline at 8 views over all cards against render() on card 0;
+    and the data-parallel texture_fit_step in one nccl process per card
+    (fit_rank) against the one-process step on card 0."""
+    import shutil
+    import socket
+
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    import worldrenderer_tpu_torch as pt
+    from worldrenderer_tpu_torch.baking import projection as pp
+    from worldrenderer_tpu_torch.ops import _build
+    from worldrenderer_tpu_torch.parallel import make_device_mesh, sweep
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("chip_smoke --multi-card: fewer than 2 CUDA devices", file=sys.stderr)
+        return 1
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split("\n")
+    log("multi", f"{n} cards: " + "; ".join(c for c in cards if c))
+    _build.build(["gbuffer_tiles", "raster_zid_tiles", "zattr_tiles"])
+    dev = torch.device("cuda", 0)
+
+    def sync_all():
+        for i in range(n):
+            torch.cuda.synchronize(i)
+
+    mesh, cam, views, cfg = shard_scene(pt, dev)
+    kw = dict(uv_size=SHARD_UV, poisson_blending=False,
+              iou_rejection_threshold=None, raster_config=cfg,
+              texel_chunks=MULTI_CHUNKS)
+    results, times, peaks = {}, {}, {}
+    for name, dm in (("card 0", make_device_mesh(axis_names=("uv",),
+                                                 devices=[dev])),
+                     (f"{n} cards", make_device_mesh(axis_names=("uv",)))):
+        pp.camera_projection(views, mesh, cam, device_mesh=dm, **kw)  # warm
+        sync_all()
+        for i in range(n):
+            torch.cuda.reset_peak_memory_stats(i)
+        t0 = time.perf_counter()
+        results[name] = pp.camera_projection(views, mesh, cam, device_mesh=dm, **kw)
+        sync_all()
+        times[name] = time.perf_counter() - t0
+        peaks[name] = [torch.cuda.max_memory_allocated(i) / 2 ** 30 for i in range(n)]
+    one, many = results["card 0"], results[f"{n} cards"]
+    bits = {f: int((getattr(one, f).view(torch.int32)
+                    != getattr(many, f).view(torch.int32)).sum())
+            for f in ("uv_proj", "uv_depth_grad", "uv_aoi_cos")}
+    mask_diff = int((one.uv_proj_mask != many.uv_proj_mask).sum())
+    log("multi", f"sharded bake, uv {SHARD_UV}², texel_chunks {MULTI_CHUNKS}: "
+        + "; ".join(f"{k} {times[k]:.4f} s, peak GiB per card "
+                    + ", ".join(f"{p:.3f}" for p in peaks[k]) for k in times)
+        + f"; {n} cards against card 0: mask diff {mask_diff}, elements whose "
+        f"bits differ {bits}")
+    if mask_diff or any(bits.values()):
+        raise AssertionError("multi: the bake over the cards differs from card 0's")
+
+    head, hcam = headline_scene(pt, dev, views=8)
+    hcfg = headline_cfg(pt, head, hcam)
+    rkw = dict(render_attr=False, render_depth=True, render_normal=True,
+               raster_config=hcfg)
+    dm = make_device_mesh()
+    sweep.render_views_sharded(head, hcam, 512, 512, dm, **rkw)
+    sync_all()
+    t0 = time.perf_counter()
+    out = sweep.render_views_sharded(head, hcam, 512, 512, dm, **rkw)
+    sync_all()
+    split_s = time.perf_counter() - t0
+    ref = pt.render(head, hcam, 512, 512, device=dev, **rkw)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    ref = pt.render(head, hcam, 512, 512, device=dev, **rkw)
+    torch.cuda.synchronize(dev)
+    one_s = time.perf_counter() - t0
+    same = all(same_bits(getattr(out, f), getattr(ref, f))
+               for f in ("mask", "pos", "depth", "normal"))
+    log("multi", f"render_views_sharded, headline at 8 views over {n} cards: "
+        f"{split_s * 1e3:.2f} ms against {one_s * 1e3:.2f} ms on card 0 (host "
+        f"clock, one warm call each), bitwise equal to render() {same}")
+    if not same:
+        raise AssertionError("multi: render_views_sharded differs from render()")
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out_path = CPU_REF_DIR / "fit_rank0.npz"
+    CPU_REF_DIR.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--fit-rank", str(r), str(n), str(port),
+                               str(out_path)]) for r in range(n)]
+    try:
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    group_s = time.perf_counter() - t0
+    if any(rcs):
+        raise AssertionError(f"multi: the fit ranks exited {rcs}")
+    got = np.load(out_path)
+    mesh4, cam4, cfg4, _, target = fit_scene(pt, dev)
+    tex = torch.full_like(mesh4.texture, 0.5).requires_grad_(True)
+    opt = torch.optim.Adam([tex], lr=FIT_LR)
+    step = sweep.make_texture_fit_step(opt, FIT_RES, FIT_RES, raster_config=cfg4)
+    losses = []
+    for _ in range(FIT_RANK_STEPS):
+        tex, _, loss = step(tex, None, mesh4, cam4, target)
+        losses.append(float(loss))
+    err = float(np.abs(got["tex"] - tex.detach().cpu().numpy()).max())
+    loss_err = float(np.max(np.abs(got["losses"] - losses) / np.asarray(losses)))
+    log("multi", f"texture_fit_step, config4 at {FIT_RES}², {n} nccl ranks "
+        f"(a view each), {FIT_RANK_STEPS} Adam steps ({group_s:.1f} s with "
+        f"the processes' start): against one process on card 0, texture max "
+        f"abs diff {err}, loss rel diff {loss_err}")
+    if not (err <= 1e-5 and loss_err <= 1e-6):
+        raise AssertionError("multi: the data-parallel step differs")
+    shutil.rmtree(CPU_REF_DIR, ignore_errors=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
+    return 0
+
+
 def k1_k4_readings(port_root: Path) -> int:
     """``python3 chip_smoke.py --k1-k4 ROOT``: only the tile kernels' times
     (K1's ``[k1] balance`` on the headline and config4, K3's ``[k3]
@@ -3507,6 +3889,11 @@ def main() -> int:
         return probe_readings(Path(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--cpu-refs":
         return cpu_references(sys.argv[2])
+    if len(sys.argv) == 2 and sys.argv[1] == "--multi-card":
+        return multi_card_readings()
+    if len(sys.argv) == 6 and sys.argv[1] == "--fit-rank":
+        return fit_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                        sys.argv[5])
     # The port must come from the checkout this script sits in (first on
     # sys.path), never from an installed copy: alone in a directory, the
     # script fails.
@@ -3515,8 +3902,11 @@ def main() -> int:
         print(f"chip_smoke: no worldrenderer_tpu_torch package in {root}",
               file=sys.stderr)
         return 1
-    # cuda_ms, the CUDA-event timer every phase uses, is the probes' own.
-    global cuda_ms
+    # cuda_ms, the CUDA-event timer every phase uses, is the probes' own;
+    # the peaks, instruction counts and K1's bound are the roofline's.
+    global cuda_ms, PEAK_FP32_FLOPS, PEAK_FP32_INSTR, PEAK_BYTES
+    global K1_OPS_PER_PAIR, OPS_PER_ENTRY_ROW, OPS_PER_ENTRY_COL
+    global TILE_OPS_PER_PAIR, k1_bound_ms
     import worldrenderer_tpu_torch as pt
     from worldrenderer_tpu_torch import meshproc
     from worldrenderer_tpu_torch.ops import _build
@@ -3526,6 +3916,16 @@ def main() -> int:
     pr = importlib.import_module("worldrenderer_tpu_torch.ops.rasterize")
     from worldrenderer_tpu_torch.ops import zattr_cuda as zc
     from worldrenderer_tpu_torch.probes import cuda_ms
+    from worldrenderer_tpu_torch.utils.roofline import (
+        H100_HBM_BYTES_PER_S as PEAK_BYTES,
+        H100_PEAK_FP32_FLOPS as PEAK_FP32_FLOPS,
+        H100_PEAK_FP32_INSTR as PEAK_FP32_INSTR,
+        K1_OPS_PER_PAIR,
+        OPS_PER_ENTRY_COL,
+        OPS_PER_ENTRY_ROW,
+        TILE_OPS_PER_PAIR,
+        k1_bound_ms,
+    )
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3604,6 +4004,7 @@ def run_all(pt, meshproc, _build, gb, gc, rk, pr, zc, dev, early,
         "paint": lambda: paint_phase(pt, gb, gc, zc, rk, dev, card, slice10()),
         "app": lambda: app_phase(pt, gb, gc, zc, rk, dev, card, slice11()),
         "texpipe": lambda: texpipe_phase(pt, gb, gc, zc, rk, dev, card, slice11()),
+        "shard": lambda: shard_phase(pt, gb, gc, zc, rk, dev, card),
     }
     try:
         return run_phases(pt, gb, pr, gc, zc, rk, dev, card, late, mark,

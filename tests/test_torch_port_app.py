@@ -18,26 +18,22 @@ application, ``tests/test_pipeline_e2e.py``'s (96², uv 96) for the
 pipeline. Torch and numpy run on one thread.
 
 The limits are the ``[app]`` phase's of ``chip_smoke.py`` wherever these
-scenes' readings meet them, and else the least that holds the readings,
-named here. The view G-buffer's positions differ from the JAX package's
-op-by-op ones by up to 2.7e-6 (``test_torch_port_bake.py`` holds them to
-1e-5), so a texel whose reprojection error lies that close to
-``pos_error_eps`` changes validity: one of the 7,643 valid texels of the
-CUSTOM bake (the JAX package's error 0.99974e-3, the port's 1.00023e-3).
-So:
+scenes' readings meet them, and else the readings, named here. The view
+G-buffer's positions and depth are bit for bit the JAX package's op-by-op
+ones (``test_render_positions_match_jax_bit_for_bit``: the inverse MVP in
+LAPACK's rounding order, the unprojection in the CPU einsum's), so no
+texel sits on the other side of a validity threshold. So:
 
 - the written mask flips at most 1e-4 of the foreground (0 read); depth
   within 1 LSB of 16 bits and normal frames within 1 LSB at every pixel
   outside the flips;
-- rgb frames within 1 LSB at all but FRAME_SHARE of the foreground outside
-  the flips (5 of 5,217 pixels of one frame, which sample the texels the
-  bake's flip changed);
-- validity flips at most MAX_BAKE_FLIPS texel a bake (1 read in the CUSTOM
-  bake; the ORTHO rig's three bakes are held to 1e-4 of their valid
-  texels, 0 read);
-- baked textures within 1e-4 (1 LSB once written) at all but TEX_SHARE of
-  texels (2 of 9,216 read: a flipped texel and the uv padding it feeds;
-  the ORTHO rig's at 1e-4, 0 read).
+- rgb frames within 1 LSB at all but FRAME_SHARE (0) of the foreground
+  outside the flips (0 read);
+- validity flips at most MAX_BAKE_FLIPS (0) texels a bake (0 read in the
+  CUSTOM bake; the ORTHO rig's three bakes are held to 1e-4 of their
+  valid texels, 0 read);
+- baked textures within 1e-4 (1 LSB once written) at all but TEX_SHARE
+  (0) of texels (0 read; the ORTHO rig's at 1e-4, 0 read).
 
 The JAX package's Poisson solve runs jitted inside its op-by-op bakes:
 bit for bit its op-by-op result (its adds keep their order; its products
@@ -87,9 +83,9 @@ N_FRAMES = 4
 CAM_FIELDS = ("c2w", "w2c", "proj_mtx", "mvp_mtx", "cam_pos")
 SEQS = ("rgb", "mask", "normal", "depth")
 # The limits that the readings set (module docstring).
-FRAME_SHARE = 1e-3
-MAX_BAKE_FLIPS = 1
-TEX_SHARE = 3e-4
+FRAME_SHARE = 0
+MAX_BAKE_FLIPS = 0
+TEX_SHARE = 0
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -458,6 +454,56 @@ def test_texture_pipeline_custom_cameras_matches_jax(e2e_scene, jax_custom, tmp_
     _near(got, want, 1, TEX_SHARE, "shaded GLB")
 
 
+class _Stop(Exception):
+    pass
+
+
+def test_render_positions_match_jax_bit_for_bit(e2e_scene, tmp_path):
+    """render()'s unprojected world positions on the CUSTOM bake's mesh and
+    cameras (as TexturePipeline hands them to camera_projection, at 96²,
+    with the bake's depth normalization) equal the JAX package's op-by-op
+    render bit for bit, and so do the mask and depth: the inverse MVP is
+    taken in the JAX package's LAPACK rounding order
+    (transforms.inverse_f32) and the unprojection and view transform in its
+    einsum's (pairwise sums of rounded products), where torch.linalg.inv
+    and an FMA chain rounded apart and flipped a validity texel of this
+    bake. Normals within 5e-5 (1.2e-5 read)."""
+    from worldrenderer_tpu.render import SimpleNormalization as JNorm
+
+    from worldrenderer_tpu_torch.render import SimpleNormalization
+
+    given = []
+
+    def stop(images, mesh, cam, **kw):
+        given.append((mesh, cam))
+        raise _Stop
+
+    with mock.patch.object(ptp, "camera_projection", stop), pytest.raises(_Stop):
+        ptp.TexturePipeline(device="cpu")(
+            save_dir=str(tmp_path), rgb_tensor=torch.from_numpy(e2e_scene["views"]),
+            **_custom_kwargs(e2e_scene))
+    ((mesh, cam),) = given
+    kw = dict(render_attr=False, render_depth=True, render_normal=True)
+    ours = pt.render(mesh, cam, RES, RES, device="cpu",
+                     depth_normalization_strategy=SimpleNormalization(
+                         scale=1.0, offset=0.0, clamp=False, bg_value=1e2), **kw)
+    jmesh = wr.TexturedMesh(v_pos=jnp.asarray(_np(mesh.v_pos)),
+                            t_pos_idx=jnp.asarray(_np(mesh.t_pos_idx)))
+    jcam = wr.Camera(**{f: jnp.asarray(_np(getattr(cam, f))) for f in CAM_FIELDS})
+    with jax.disable_jit():
+        ref = wr.render(jmesh, jcam, RES, RES,
+                        depth_normalization_strategy=JNorm(
+                            scale=1.0, offset=0.0, clamp=False, bg_value=1e2), **kw)
+    assert int(np.asarray(ref.mask).sum()) > 5000
+    for name in ("mask", "pos", "depth"):
+        a, b = _np(getattr(ours, name)), np.asarray(getattr(ref, name))
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert a.tobytes() == b.tobytes(), (name, int((a != b).sum()))
+    # The vertex normals round apart by 1 ulp in places (an open fault).
+    np.testing.assert_allclose(_np(ours.normal), np.asarray(ref.normal), atol=5e-5,
+                               rtol=0)
+
+
 def _host(x):
     return None if x is None else _np(x)
 
@@ -573,13 +619,13 @@ def test_texture_pipeline_ortho_poisson_reprojection_matches_jax(e2e_scene, tmp_
     """The real ORTHO bake and both Poisson reprojection passes (views 4-5,
     then 0-3; from_scratch=False on the baked texture,
     pb_keep_original_border=True), base colour only (six seeded views at
-    48²), uv 64: the smallest rig that runs both passes, against the JAX
-    package's run op by op, at the ``[texpipe]`` phase's limits: each of
+    48²), uv 96, against the JAX package's run op by op, at the
+    ``[texpipe]`` phase's limits: each of
     the three camera_projection outputs' validity flips at most 1e-4 of
     the reference's valid texels and its texture within 1e-4 at all but
     1e-4 of texels, and the PBR GLB's texture within 1 LSB (0 read in
     each)."""
-    kw = dict(mesh_path=str(e2e_scene["glb"]), save_name="poisson", uv_size=64,
+    kw = dict(mesh_path=str(e2e_scene["glb"]), save_name="poisson", uv_size=ORTHO_UV,
               keep_original_transform=False,
               base_color_path=str(e2e_scene["dir"] / "base"),
               poisson_reprojection=True)

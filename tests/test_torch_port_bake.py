@@ -387,8 +387,10 @@ def test_camera_projection_matches_jax(bake):
 
 def test_camera_projection_iou_rejection_and_unported_options(bake):
     """Masks that disagree with the silhouettes return None; the rendered
-    masks themselves pass. device_mesh names its queue item; warp_images
-    without images_background raises (the warp itself:
+    masks themselves pass. device_mesh refuses warp_images (the sharded
+    bake takes pre-warped views; it is held by
+    tests/test_torch_port_parallel.py); warp_images without
+    images_background raises (the warp itself:
     tests/test_torch_port_paint.py)."""
     kw = dict(cam=bake["pc"], uv_size=UV_SIZE, poisson_blending=False,
               raster_config=pt.RasterizerConfig(), device="cpu",
@@ -401,8 +403,12 @@ def test_camera_projection_iou_rejection_and_unported_options(bake):
     out = pproj.CameraProjection(device="cpu")(
         bake["images"], bake["pm"], masks=good, return_dict=True, **kw)
     assert out is not None and out.uv_proj.shape == (UV_SIZE, UV_SIZE, 3)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pproj.camera_projection(bake["images"], bake["pm"], device_mesh=object(),
+    from worldrenderer_tpu_torch.parallel import make_device_mesh
+
+    with pytest.raises(ValueError, match="pre-warped"):
+        pproj.camera_projection(bake["images"], bake["pm"], warp_images=True,
+                                images_background=0.5,
+                                device_mesh=make_device_mesh(devices=["cpu"]),
                                 **kw)
     with pytest.raises(ValueError, match="images_background"):
         pproj.camera_projection(bake["images"], bake["pm"], warp_images=True,

@@ -10,9 +10,11 @@ versions run on the CPU; so are the measurement probes of ``probes/``.
 ``baking`` projects multi-view images onto a mesh's UV texture, fits
 views to renders (``compute_warp_field``) and inpaints what no view saw
 (``SmartPainter``); ``rasterize_diff`` gives vertex-position gradients.
+``parallel`` splits views and bake texel rows over a mesh of devices and
+runs the texture fit data-parallel over ``torch.distributed``.
 """
 
-from . import baking, geometry, ops, scene, utils
+from . import baking, geometry, ops, parallel, scene, utils
 
 from .camera import (
     Camera,
@@ -81,7 +83,7 @@ __all__ = [
     "antialias", "GBufferOutput", "rasterize_gbuffer", "interpolate",
     "rasterize", "rasterize_db", "rasterize_diff", "texture",
     "texture_construct_mip", "grid_sample", "baking", "geometry", "ops",
-    "scene", "utils",
+    "parallel", "scene", "utils",
     "DEFAULT_CONFIG", "FAST_TPU_CONFIG", "RasterizerConfig",
     "auto_fast_config", "binning_stats",
     "DepthControlNetNormalization", "RenderOutput", "SimpleNormalization",

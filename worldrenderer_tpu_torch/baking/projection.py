@@ -122,6 +122,23 @@ def _auto_pack_mode(images) -> str:
     return "none"
 
 
+def _check_validity_bound(name: str, v):
+    """A validity bound as "auto" or a Python float; anything else raises
+    ``ValueError`` (the sharded bake takes no per-view tensors, as the JAX
+    package's does not)."""
+    if isinstance(v, str):
+        if v != "auto":
+            raise ValueError(f"{name}: float or 'auto', got {v!r}")
+        return v
+    try:
+        return float(v)
+    except (TypeError, ValueError) as e:
+        raise ValueError(
+            f"{name}: float or 'auto', got {type(v).__name__} ({v!r}); "
+            f"per-view tensors are not taken on the sharded bake, pass "
+            f"'auto' for per-view footprint scaling") from e
+
+
 def camera_projection(
     images,
     mesh: TexturedMesh,
@@ -171,12 +188,38 @@ def camera_projection(
     budgets would drop triangles in either rasterization. ``bg_remover`` is
     the caller's callable, images -> masks (a ``SegmentationModel``).
     ``warp_images`` first fits each view to a render of the mesh over
-    ``images_background`` (``compute_warp_field``; square views)."""
-    del device_mesh_axis, texel_chunks  # the sharded bake's; see below
+    ``images_background`` (``compute_warp_field``; square views).
+    ``device_mesh`` (a ``parallel.DeviceMesh``) splits the UV texel rows
+    over its axis ``device_mesh_axis``, each band in ``texel_chunks``
+    sequential chunks (``parallel.sharded_camera_projection``; ``device``
+    is then the mesh's, and the views come pre-warped and pre-matted)."""
     if device_mesh is not None:
-        raise NotImplementedError(
-            "device_mesh (the texel-sharded multi-device bake) is not ported "
-            "yet: ROADMAP queue 1, item 12")
+        if warp_images or remove_bg or bg_remover is not None:
+            raise ValueError(
+                "device_mesh bakes take pre-warped / pre-matted images: run "
+                "compute_warp_field / the bg remover on the views first "
+                "(both are view-space, orthogonal to texel sharding)")
+        from ..parallel.bake import sharded_camera_projection
+
+        return sharded_camera_projection(
+            images, mesh, cam, device_mesh=device_mesh,
+            axis_name=device_mesh_axis, masks=masks, fovy_deg=fovy_deg,
+            c2w=c2w, elevation_deg=elevation_deg, distance=distance,
+            azimuth_deg=azimuth_deg, num_views=num_views, uv_size=uv_size,
+            iou_rejection_threshold=iou_rejection_threshold,
+            aoi_cos_valid_threshold=aoi_cos_valid_threshold,
+            pos_error_eps=_check_validity_bound("pos_error_eps", pos_error_eps),
+            depth_grad_dilation=depth_grad_dilation,
+            depth_grad_threshold=_check_validity_bound(
+                "depth_grad_threshold", depth_grad_threshold),
+            uv_exp_blend_alpha=uv_exp_blend_alpha,
+            uv_exp_blend_view_weight=uv_exp_blend_view_weight,
+            poisson_blending=poisson_blending, pb_num_iters=pb_num_iters,
+            pb_keep_original_border=pb_keep_original_border,
+            from_scratch=from_scratch, uv_padding=uv_padding,
+            raster_config=raster_config, verbose=verbose,
+            validate_binning=validate_binning,
+            images_pack_mode=images_pack_mode, texel_chunks=texel_chunks)
     if warp_images and images_background is None:
         raise ValueError("warp_images needs images_background, the "
                          "background of the renders the views are fitted to")

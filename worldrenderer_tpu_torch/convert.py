@@ -1,6 +1,6 @@
 """Build the port's objects from numpy arrays, so the port and the JAX
 package can be handed the same state (a mesh, a camera batch, a
-rasterizer config)."""
+rasterizer config, an Adam optimizer's state)."""
 
 from __future__ import annotations
 
@@ -76,3 +76,19 @@ def config_from_dict(fields: Mapping[str, Any]) -> RasterizerConfig:
     if unknown:
         raise ValueError(f"unknown RasterizerConfig fields: {sorted(unknown)}")
     return RasterizerConfig(**fields)
+
+
+def adam_state_from_optax(count, mu, nu, device: DeviceLike = None) -> dict:
+    """``torch.optim.Adam``'s state for one parameter from an optax Adam
+    state's ``count``, ``mu`` and ``nu`` (``ScaleByAdamState``, as numpy):
+    ``step`` (a float32 scalar on the host, as Adam keeps it),
+    ``exp_avg`` and ``exp_avg_sq`` (float32 on ``device``). Install it with
+    ``optimizer.state[param] = ...`` or hand it to
+    ``parallel.make_texture_fit_step``'s step as ``opt_state``, so a fit
+    carries on from the JAX package's."""
+    dev = resolve_device(device)
+    return {
+        "step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+        "exp_avg": _f32(mu, dev),
+        "exp_avg_sq": _f32(nu, dev),
+    }

@@ -19,7 +19,7 @@ import torch
 from ._device import DeviceLike, resolve_device
 from .camera import normalize
 from .ops.tensor import fma_dot3
-from .transforms import fma_f32
+from .transforms import fma_f32, inverse_f32
 
 __all__ = [
     "get_position_map_from_depth",
@@ -143,9 +143,10 @@ def get_opencv_from_blender(matrix_world, fov: Optional[float] = None,
     """A Blender camera's world matrix -> OpenCV extrinsics (rotation,
     translation), and intrinsics when ``fov`` is given (perspective): the
     inverse with the camera's Y and Z rows negated. The inverse is taken on
-    the host in float64, so every device gets the same bits."""
+    the host in the JAX package's fp32 rounding order (:func:`inverse_f32`),
+    so every device gets the same bits, the reference's."""
     m = torch.as_tensor(matrix_world, dtype=torch.float32)
-    w2c = torch.linalg.inv(m.detach().cpu().double()).float()
+    w2c = inverse_f32(m)
     w2c[1, :] *= -1.0
     w2c[2, :] *= -1.0
     w2c = w2c.to(m.device)

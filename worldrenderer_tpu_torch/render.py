@@ -33,7 +33,7 @@ from .ops.gbuffer import rasterize_gbuffer
 from .ops.interpolate import interpolate
 from .ops.rasterize import DEFAULT_CONFIG, RasterizerConfig, rasterize
 from .ops.texture import texture
-from .transforms import (get_clip_space_position, mvp_columns,
+from .transforms import (get_clip_space_position, inverse_f32,
                          transform_points_homo)
 
 __all__ = [
@@ -151,10 +151,11 @@ def _render_fused(mesh, cam, v_pos_clip, height, width, *, render_attr,
     rasterization (normal, tangent and (u, v) over the primary topology);
     world position is the unprojected depth plane."""
     # The unprojection's inverse MVPs and pixel centres come from the host
-    # (the card's batched LU rounds apart, and it divides by a scalar as a
-    # multiply by its reciprocal), made before the rasterizer is queued: a
-    # copy between host and card waits for the work queued before it.
-    inv_mvp = torch.linalg.inv(cam.mvp_mtx.cpu()).to(device)  # (B, 4, 4)
+    # (the inverse in the JAX package's LAPACK rounding order, and the card
+    # divides by a scalar as a multiply by its reciprocal), made before the
+    # rasterizer is queued: a copy between host and card waits for the work
+    # queued before it.
+    inv_mvp = inverse_f32(cam.mvp_mtx).to(device)  # (B, 4, 4)
     px = ((torch.arange(width, dtype=torch.float32) + 0.5) / width * 2.0 - 1.0).to(device)
     py = ((torch.arange(height, dtype=torch.float32) + 0.5) / height * 2.0 - 1.0).to(device)
     nv = mesh.v_pos.shape[0]
@@ -188,17 +189,13 @@ def _render_fused(mesh, cam, v_pos_clip, height, width, *, render_attr,
     )
     mask = out.mask
 
-    # Unproject NDC (x, y, z) through the inverse MVP to world position, as
-    # mvp_columns' fixed chain of rounded FMAs: the card gives the CPU's bits
-    # for the same z.
-    bsz = out.z.shape[0]
-    world_h = mvp_columns(
-        inv_mvp,
-        px.expand(bsz, 1, height, width).reshape(bsz, 1, -1),
-        py[:, None].expand(bsz, 1, height, width).reshape(bsz, 1, -1),
-        out.z.reshape(bsz, 1, -1),
-    )  # (B, 4, H*W)
-    world_h = world_h.transpose(1, 2).reshape(bsz, height, width, 4)
+    # Unproject NDC (x, y, z, 1) through the inverse MVP to world position,
+    # rounded as the JAX package's HIGHEST einsum on the CPU: each product
+    # rounded, then (x m0 + y m1) + (z m2 + m3). Each op is a kernel of its
+    # own, so the card rounds as the CPU does (nothing fuses into an FMA).
+    cols = inv_mvp[:, None, None]  # (B, 1, 1, 4 i, 4 j)
+    world_h = ((px[:, None] * cols[..., 0] + py[:, None, None] * cols[..., 1])
+               + (out.z[..., None] * cols[..., 2] + cols[..., 3]))  # (B, H, W, 4)
     w = world_h[..., 3:4]
     w_div = torch.where(w.abs() < 1e-20, 1e-20, w)
     gb_pos = torch.where(mask[..., None], world_h[..., :3] / w_div, 0.0)

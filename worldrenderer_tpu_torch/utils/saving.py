@@ -16,33 +16,10 @@ import re
 from typing import Optional, Sequence
 
 import numpy as np
-import torch
+
+from .misc import _to_numpy, save_checkpoint
 
 __all__ = ["SaverMixin"]
-
-
-def _to_numpy(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
-
-
-def _save_checkpoint(path: str, state: dict, epoch: int, global_step: int) -> None:
-    """A nested dict of arrays and tensors as one npz, its keys joined with
-    dots, beside ``__epoch__`` and ``__global_step__``."""
-    flat = {}
-
-    def flatten(prefix, obj):
-        if isinstance(obj, dict):
-            for k, v in obj.items():
-                flatten(prefix + k + ".", v)
-        else:
-            flat[prefix[:-1]] = _to_numpy(obj)
-
-    flatten("", state)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    np.savez(path, __epoch__=np.asarray(epoch),
-             __global_step__=np.asarray(global_step), **flat)
 
 
 def _to_uint8(img: np.ndarray, data_range=(0, 1)) -> np.ndarray:
@@ -227,7 +204,7 @@ class SaverMixin:
         self, filename: str, state: dict, epoch: int = 0, global_step: int = 0
     ) -> str:
         path = self.get_save_path(filename)
-        _save_checkpoint(path, state, epoch=epoch, global_step=global_step)
+        save_checkpoint(path, state, epoch=epoch, global_step=global_step)
         return path
 
     # -- videos -------------------------------------------------------------

@@ -34,7 +34,10 @@ Phases, one line each; any failure exits nonzero before the last line:
      auto_fast_config budgets) through ``render()`` — with every kernel's
      launch count read around it, its result held against the port's own
      CPU run, views/s and kernel times on the card, and the binning-budget
-     guard (doubled budgets give the same mask, ids and z);
+     guard (doubled budgets give the same mask, ids and z); [normals]: the
+     face normals' cross product, ``compute_vertex_normals`` and
+     ``normalize`` on the card bit for bit against the CPU on the headline
+     mesh and the bake sphere, beside the rendered normals' difference;
   5. slice 2's paths, each with its launch counts read around it and its
      result held against the port's CPU run: [tiles] workload 1 (the
      3,968-triangle UV sphere, 6 views at 512²) with the fused_pallas
@@ -1101,13 +1104,44 @@ def flat_backends_phase(pt, gb, gc, zc, rk, dev, card, head_cfg, early) -> dict:
     return launches
 
 
+def normals_check(pt, meshes, dev, nrm_err) -> None:
+    """The vertex normals' steps on the card against the CPU on the same
+    inputs, bit for bit, for each (name, mesh): the face normals
+    (``transforms.cross``), ``compute_vertex_normals``, and ``normalize``
+    of the vertex sums; any element apart fails. Beside it, the rendered
+    headline normals' largest card-against-CPU difference."""
+    from worldrenderer_tpu_torch import mesh as pm
+    from worldrenderer_tpu_torch.transforms import cross
+
+    def face_normals(v, t):
+        return cross(v[t[:, 1]] - v[t[:, 0]], v[t[:, 2]] - v[t[:, 0]])
+
+    parts = []
+    for name, mesh in meshes:
+        v_c, t_c = mesh.v_pos.cpu(), mesh.t_pos_idx.cpu()
+        fn_c = face_normals(v_c, t_c)
+        sums = pm._sum_to_vertices(fn_c, t_c, len(v_c))
+        apart = {
+            "cross": bits_differ(face_normals(v_c.to(dev), t_c.to(dev)), fn_c),
+            "compute_vertex_normals": bits_differ(
+                pt.compute_vertex_normals(v_c.to(dev), t_c.to(dev)),
+                pt.compute_vertex_normals(v_c, t_c)),
+            "normalize": bits_differ(pt.normalize(sums.to(dev)), pt.normalize(sums)),
+        }
+        parts.append(f"{name} ({len(v_c)} vertices) {apart}")
+        if any(apart.values()):
+            raise AssertionError(f"{name}: the card's vertex normals differ from "
+                                 f"the CPU's: {apart}")
+    log("normals", f"card vs CPU, elements apart: {'; '.join(parts)}; rendered "
+        f"headline normals card vs CPU max abs {nrm_err} (0: {nrm_err == 0})")
+
+
 def spread_report(pt, mesh, cam, dev, kw, out, ref) -> None:
     """Where the card's render parts from the CPU's. Normals: the vertex
-    normals (``index_add_``, atomic adds on the card) against the CPU's and
-    against a second card run, then the card's render given the CPU's
-    vertex normals, and two card renders against each other. Positions:
-    the batched inverse MVP of the two devices."""
-    from worldrenderer_tpu_torch import mesh as pm
+    normals against the CPU's and against a second card run, then the
+    card's render given the CPU's vertex normals, and two card renders
+    against each other. Positions: the batched inverse MVP of the two
+    devices."""
 
     def max_err(a, b, mask):
         return float((a.cpu() - b.cpu())[mask.cpu()].abs().max())
@@ -1123,20 +1157,6 @@ def spread_report(pt, mesh, cam, dev, kw, out, ref) -> None:
         f"of {len(vn_cpu)} differ, max abs "
         f"{float((vn_a.cpu() - vn_cpu).abs().max())}; card run to run: "
         f"{rows_differ(vn_a, vn_b)} differ")
-    # Each stage of the vertex normals on the card, given the CPU's input
-    # to that stage.
-    def cross(v, t):  # the face normals of compute_vertex_normals
-        return torch.linalg.cross(v[t[:, 1]] - v[t[:, 0]], v[t[:, 2]] - v[t[:, 0]])
-
-    fn_c = cross(v_c, t_c)
-    s_c = pm._sum_to_vertices(fn_c, t_c, len(v_c))
-    s_g = s_c.to(dev)
-    log("spread", "vertex normal stages, card vs CPU on the same input, rows "
-        f"that differ: face normals "
-        f"{rows_differ(cross(mesh.v_pos, mesh.t_pos_idx), fn_c)}, sums "
-        f"{rows_differ(pm._sum_to_vertices(fn_c.to(dev), mesh.t_pos_idx, len(v_c)), s_c)}"
-        f", _normalize_rows {rows_differ(pm._normalize_rows(s_g), pm._normalize_rows(s_c))}"
-        f" (linalg.vector_norm {rows_differ(pt.normalize(s_g), pt.normalize(s_c))})")
     same_vn = pt.render(mesh._replace(v_nrm=vn_cpu.to(dev)), cam, 512, 512,
                         device=dev, **kw)
     again = pt.render(mesh, cam, 512, 512, device=dev, **kw)
@@ -4117,6 +4137,9 @@ def run_phases(pt, gb, pr, gc, zc, rk, dev, card, late, mark, t_start,
     if id_diff > 1e-4 * fg or head_cfg != cpu["cfg"]:
         raise AssertionError("GPU triangle ids disagree with the CPU")
     spread_report(pt, mesh, cam, dev, kw, out, ref)
+    verts, faces, _ = pt.uv_sphere_mesh(65, 129)  # bake_scene's mesh
+    normals_check(pt, [("headline", mesh), ("bake sphere", pt.mesh_from_arrays(
+        verts, faces, device=dev))], dev, nrm_err)
 
     n_reps = 20
     render_ms = cuda_ms(

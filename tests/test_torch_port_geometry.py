@@ -166,11 +166,12 @@ def test_mesh_generators_and_normals_match_jax(shape):
     np.testing.assert_array_equal(pv, jv)
     np.testing.assert_array_equal(pf, jf)
     v32 = pv.astype(np.float32)
-    ref = jmesh.compute_vertex_normals(jnp.asarray(v32), jnp.asarray(pf, jnp.int32))
+    with jax.disable_jit():
+        ref = jmesh.compute_vertex_normals(jnp.asarray(v32), jnp.asarray(pf, jnp.int32))
     ours = pt.compute_vertex_normals(torch.from_numpy(v32), torch.from_numpy(pf))
-    # Summation order differs (XLA's gather-sum vs the corner-list order):
-    # fp32 round-off.
-    np.testing.assert_allclose(_np(ours), _np(ref), atol=1e-6)
+    # Bit for bit the JAX package's op-by-op run (its jitted run contracts
+    # the cross product and the norm into FMAs).
+    assert _np(ours).tobytes() == _np(ref).tobytes()
     m = pt.with_normals(pt.mesh_from_arrays(v32, pf, device="cpu"))
     np.testing.assert_array_equal(_np(m.v_nrm), _np(ours))
 
@@ -180,6 +181,7 @@ def test_vertex_sums_follow_index_add_order(shape, rng):
     # The fixed-order sum behind the vertex normals equals three sequential
     # index_add_ calls (the CPU's order) bit for bit, at mixed magnitudes.
     from worldrenderer_tpu_torch.mesh import _sum_to_vertices
+    from worldrenderer_tpu_torch.transforms import cross
 
     if shape == "icosphere":
         v, f = pt.icosphere(3)
@@ -198,8 +200,7 @@ def test_vertex_sums_follow_index_add_order(shape, rng):
     assert torch.equal(got, want)
     # So the vertex normals equal the index_add_ formula on the CPU.
     v32 = torch.from_numpy(v.astype(np.float32))
-    fn = torch.linalg.cross(v32[faces[:, 1]] - v32[faces[:, 0]],
-                            v32[faces[:, 2]] - v32[faces[:, 0]])
+    fn = cross(v32[faces[:, 1]] - v32[faces[:, 0]], v32[faces[:, 2]] - v32[faces[:, 0]])
     acc = torch.zeros_like(v32)
     for k in range(3):
         acc.index_add_(0, faces[:, k], fn)
@@ -210,17 +211,18 @@ def test_vertex_sums_follow_index_add_order(shape, rng):
 
 
 def test_normalize_rows_matches_normalize(rng):
-    # The device-independent row normalize behind the vertex normals has
-    # the bits of normalize on the CPU and of the JAX package's normalize.
+    # The vertex normals and tangents normalize their rows with normalize
+    # itself, which has the bits of the JAX package's op-by-op normalize.
     from worldrenderer_tpu.camera import normalize as j_normalize
-    from worldrenderer_tpu_torch.mesh import _normalize_rows
+    from worldrenderer_tpu_torch import mesh as pmesh
 
+    assert pmesh.normalize is pt.normalize
     rows = (rng.standard_normal((20000, 3))
             * 10.0 ** rng.integers(-6, 6, (20000, 1))).astype(np.float32)
-    got = _normalize_rows(torch.from_numpy(rows))
-    assert torch.equal(got, pt.normalize(torch.from_numpy(rows)))
-    np.testing.assert_array_equal(got.numpy(),
-                                  np.asarray(j_normalize(jnp.asarray(rows))))
+    got = pt.normalize(torch.from_numpy(rows))
+    with jax.disable_jit():
+        want = np.asarray(j_normalize(jnp.asarray(rows)))
+    assert got.numpy().tobytes() == want.tobytes()
 
 
 def test_normalize_takes_the_reference_keywords():

@@ -80,7 +80,7 @@ def test_render_headline_matches_jax():
     po = pt.render(pmesh, pcam, 512, 512, device="cpu",
                    raster_config=pt.config_from_dict(cfg._asdict()), **kw)
     assert po.depth is None and po.attr is None
-    _compare(jo, po, (("pos", 1e-5), ("normal", 5e-4)))
+    _compare(jo, po, (("pos", 1e-5), ("normal", 3e-6)))  # normals: 1.4e-6 read
 
 
 @pytest.mark.parametrize("name, args", [

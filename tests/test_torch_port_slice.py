@@ -81,6 +81,6 @@ def test_render_small_with_depth_matches_jax():
     m = _np(jo.mask)
     np.testing.assert_array_equal(_np(po.mask), m)
     assert m.sum() > 0.2 * m.size
-    for f, atol in (("pos", 1e-5), ("depth", 1e-5), ("normal", 5e-4)):
+    for f, atol in (("pos", 1e-5), ("depth", 1e-5), ("normal", 2e-6)):  # 7.7e-7 read
         np.testing.assert_allclose(_np(getattr(po, f)), _np(getattr(jo, f)),
                                    atol=atol, rtol=0, err_msg=f)

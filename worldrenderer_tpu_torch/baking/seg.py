@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..transforms import norm
 
 __all__ = ["SegmentationModel", "RMBGModel", "ThresholdMatting"]
 
@@ -48,7 +49,7 @@ class ThresholdMatting(SegmentationModel):
     def __call__(self, images) -> torch.Tensor:
         images = _images_on(images, self.device)
         bg = torch.as_tensor(self.bg_color, device=images.device)
-        dist = torch.linalg.vector_norm(images[..., :3] - bg, dim=-1)
+        dist = norm(images[..., :3] - bg)
         return (dist > self.threshold).to(torch.float32)[..., None]
 
 

@@ -28,6 +28,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..ops.grid_sample import grid_sample
+from ..transforms import norm
 
 __all__ = ["construct_grid_mesh", "compute_warp_field"]
 
@@ -154,8 +155,7 @@ def compute_warp_field(
     movable = torch.tensor(movable_np, dtype=torch.float32, device=dev)[:, None]
 
     def edge_len(v):
-        return torch.linalg.vector_norm(v[..., edges[:, 0], :] - v[..., edges[:, 1], :],
-                                        dim=-1)
+        return norm(v[..., edges[:, 0], :] - v[..., edges[:, 1], :])
 
     rest_len = edge_len(verts0)
     delta = torch.zeros((src.shape[0],) + verts0.shape, device=dev)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ._device import DeviceLike, as_f32, resolve_device
-from .transforms import fma_f32
+from .transforms import cross, fma_f32, norm
 
 ArrayLike = Union[torch.Tensor, np.ndarray, Sequence[float], float, int]
 
@@ -27,10 +27,21 @@ ArrayLike = Union[torch.Tensor, np.ndarray, Sequence[float], float, int]
 def normalize(x: torch.Tensor, axis: int = -1, eps: float = 1e-12,
               dim: Optional[int] = None) -> torch.Tensor:
     """L2-normalize along ``axis`` (``dim``, PyTorch's name, is an alias):
-    x / max(||x||, eps)."""
-    norm = torch.linalg.vector_norm(x, dim=axis if dim is None else dim,
-                                    keepdim=True)
-    return x / torch.clamp(norm, min=eps)
+    x / max(||x||, eps), with the norm rounded as the JAX package's op by
+    op (:func:`~.transforms.norm`) and the quotient in ``x``'s dtype."""
+    n = norm(x, dim=axis if dim is None else dim, keepdim=True)
+    return x / torch.clamp(n, min=eps)
+
+
+def _look_at_origin(cam_pos: torch.Tensor) -> torch.Tensor:
+    """(N, 3) camera positions -> (N, 3, 3) Z-up look-at rotations toward
+    the origin, columns [right, up, -lookat]."""
+    up_world = torch.tensor([0.0, 0.0, 1.0], device=cam_pos.device)
+    up_world = up_world.expand_as(cam_pos)
+    lookat = normalize(-cam_pos)
+    right = normalize(cross(lookat, up_world))
+    up = normalize(cross(right, lookat))
+    return torch.stack([right, up, -lookat], dim=-1)
 
 
 def get_c2w(
@@ -63,12 +74,7 @@ def get_c2w(
         ],
         dim=-1,
     )  # (N, 3)
-    up_world = torch.tensor([0.0, 0.0, 1.0], device=device).expand(n, 3)
-    lookat = normalize(-cam_pos)
-    right = normalize(torch.linalg.cross(lookat, up_world))
-    up = normalize(torch.linalg.cross(right, lookat))
-    rot = torch.stack([right, up, -lookat], dim=-1)  # (N, 3, 3) columns
-    c2w = torch.cat([rot, cam_pos[:, :, None]], dim=-1)  # (N, 3, 4)
+    c2w = torch.cat([_look_at_origin(cam_pos), cam_pos[:, :, None]], dim=-1)
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device).expand(n, 1, 4)
     return torch.cat([c2w, bottom], dim=1)
 

@@ -19,7 +19,7 @@ import torch
 from ._device import DeviceLike, resolve_device
 from .camera import normalize
 from .ops.tensor import fma_dot3
-from .transforms import fma_f32, inverse_f32
+from .transforms import cross, fma_f32, inverse_f32
 
 __all__ = [
     "get_position_map_from_depth",
@@ -134,8 +134,7 @@ def compute_plucker_embed(c2w: torch.Tensor, image_width: int,
     directions = get_ray_directions(image_height, image_width, focal,
                                     device=c2w.device)
     rays_o, rays_d = get_rays(directions, c2w)
-    cross = torch.linalg.cross(rays_o, rays_d, dim=-1)
-    return torch.cat([rays_d, cross], dim=-1).permute(2, 0, 1)
+    return torch.cat([rays_d, cross(rays_o, rays_d)], dim=-1).permute(2, 0, 1)
 
 
 def get_opencv_from_blender(matrix_world, fov: Optional[float] = None,
@@ -181,7 +180,8 @@ def get_plucker_embeds_from_cameras_ortho(c2w, ortho_scale,
     for m, _scale in zip(c2w, ortho_scale):
         rot, trans = get_opencv_from_blender(m)
         rot_t = rot.T.contiguous()
-        cam_pos = -fma_dot3(rot_t, trans[None, :], -1)
+        # (-R^T) t, as the JAX package groups it: it sets the sign of a zero
+        cam_pos = fma_dot3(-rot_t, trans[None, :], -1)
         z = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=rot.device)
         view_dir = fma_dot3(rot_t, z[None, :], -1)
         plucker = torch.cat([view_dir, normalize(cam_pos, axis=0)])  # (6,)

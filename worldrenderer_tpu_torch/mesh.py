@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
-from .transforms import dot, fma_f32
+from .camera import normalize
+from .transforms import cross, dot
 
 __all__ = [
     "TexturedMesh",
@@ -69,55 +70,58 @@ class TexturedMesh(NamedTuple):
         return TexturedMesh(*(None if a is None else a.to(device) for a in self))
 
 
+# The JAX package's incidence-table degree cap (a scatter-add in corner
+# order above it) and XLA's CPU tree-reduction window.
+_TABLE_MAX_DEGREE = 64
+_REDUCE_WINDOW = 32
+
+
 def _sum_to_vertices(vals: torch.Tensor, t_pos_idx: torch.Tensor, n: int) -> torch.Tensor:
     """Per-face rows (T, C) summed onto the faces' three vertices -> (n, C).
 
-    Each vertex's terms are added one at a time in the order of the
-    corner list [corner 0 of every face, then corner 1, then corner 2]:
-    the order of three ``index_add_`` calls on the CPU. On the card
-    ``index_add_`` adds with atomics, in an order that changes from run to
-    run; this fixed order gives the same bits on every device and run."""
+    Each vertex's terms are taken in the order of the corner list [corner
+    0 of every face, then corner 1, then corner 2] and added one at a time,
+    as the JAX package's op-by-op run adds them. Where the largest degree D
+    is over 32 and at most 64, that run sums its (V, D) table in two
+    windows of 32 with the 64 - D padding split evenly before and after, so
+    the first 32 - (64 - D) // 2 terms and the rest are summed apart and
+    then added. On the card ``index_add_`` adds with atomics, in an order
+    that changes from run to run; this fixed order gives the same bits on
+    every device and run."""
     idx = t_pos_idx.T.reshape(-1)  # (3T,) corner-major
     order = torch.argsort(idx, stable=True)
     counts = torch.bincount(idx, minlength=n)
     starts = torch.cumsum(counts, 0) - counts
     s_idx = idx[order]
     rank = torch.arange(idx.numel(), device=idx.device) - starts[s_idx]
-    table = vals.new_zeros((n, int(counts.max()) if n else 0, vals.shape[1]))
+    width = int(counts.max()) if n else 0
+    table = vals.new_zeros((n, width, vals.shape[1]))
     table[s_idx, rank] = vals.repeat(3, 1)[order]
-    out = vals.new_zeros((n, vals.shape[1]))
-    for k in range(table.shape[1]):
-        out += table[:, k]  # adding a padding zero leaves a sum unchanged
-    return out
+
+    def run(lo, hi):
+        out = vals.new_zeros((n, vals.shape[1]))
+        for k in range(lo, hi):
+            out += table[:, k]  # adding a padding zero leaves a sum unchanged
+        return out
+
+    if _REDUCE_WINDOW < width <= _TABLE_MAX_DEGREE:
+        first = _REDUCE_WINDOW - (2 * _REDUCE_WINDOW - width) // 2
+        return run(0, first) + run(first, width)
+    return run(0, width)
 
 
 def compute_vertex_normals(v_pos: torch.Tensor, t_pos_idx: torch.Tensor) -> torch.Tensor:
-    """Area-weighted vertex normals: face normals summed onto their three
-    vertices in a fixed order (the JAX package's segment sum)."""
+    """Area-weighted vertex normals: face normals (:func:`cross`) summed
+    onto their three vertices in a fixed order (the JAX package's segment
+    sum), then normalized (:func:`normalize`): the JAX package's op-by-op
+    bits on every device."""
     i0, i1, i2 = t_pos_idx[:, 0], t_pos_idx[:, 1], t_pos_idx[:, 2]
     v0, v1, v2 = v_pos[i0], v_pos[i1], v_pos[i2]
-    face_normals = torch.linalg.cross(v1 - v0, v2 - v0)  # (T, 3)
+    face_normals = cross(v1 - v0, v2 - v0)  # (T, 3)
     v_nrm = _sum_to_vertices(face_normals, t_pos_idx, v_pos.shape[0])
     up = torch.tensor([0.0, 0.0, 1.0], dtype=v_nrm.dtype, device=v_nrm.device)
     v_nrm = torch.where(dot(v_nrm, v_nrm) > 1e-20, v_nrm, up)
-    return _normalize_rows(v_nrm)
-
-
-def _normalize_rows(v: torch.Tensor) -> torch.Tensor:
-    """``normalize`` of (N, 3) fp32 rows with the same bits on every device.
-
-    ``linalg.vector_norm`` of such rows rounds differently on the CPU and
-    on the card. Here the squared norm is the fp32 chain
-    fma(x2, x2, fma(x1, x1, x0 * x0)) — the bits of ``normalize`` on the
-    CPU and of the JAX package's ``normalize`` — and the root and the
-    quotient are taken in float64 and rounded once, which gives the
-    correctly rounded fp32 result (53 >= 2 * 24 + 2)."""
-    v64 = v.double()
-    ss = (v64[:, 0] * v64[:, 0]).float().double()
-    ss = fma_f32(v64[:, 1], v64[:, 1], ss).double()
-    ss = fma_f32(v64[:, 2], v64[:, 2], ss).double()
-    norm = torch.sqrt(ss).float().double()
-    return (v64 / torch.clamp(norm, min=1e-12)[:, None]).float()
+    return normalize(v_nrm)
 
 
 def compute_vertex_tangents(
@@ -146,8 +150,8 @@ def compute_vertex_tangents(
     tangents = _sum_to_vertices(tang, t_pos_idx, n)
     tansum = torch.bincount(t_pos_idx.reshape(-1), minlength=n).to(tang.dtype)
     tangents = tangents / torch.clamp(tansum, min=1.0)[:, None]
-    tangents = _normalize_rows(tangents)
-    return _normalize_rows(tangents - dot(tangents, v_nrm) * v_nrm)
+    tangents = normalize(tangents)
+    return normalize(tangents - dot(tangents, v_nrm) * v_nrm)
 
 
 def with_normals(mesh: TexturedMesh, compute_tangents: bool = False) -> TexturedMesh:

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
 from ..camera import normalize, rigid_inverse
-from ..transforms import dot, fma_f32
+from ..transforms import cross, dot, fma_f32
 
 __all__ = [
     "reflect",
@@ -294,7 +294,7 @@ def get_plucker_rays(rays_o: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor
     """Plücker 6-vector (o x d, d) of normalized origins and directions."""
     rays_o = normalize(rays_o)
     rays_d = normalize(rays_d)
-    return torch.cat([torch.linalg.cross(rays_o, rays_d, dim=-1), rays_d], dim=-1)
+    return torch.cat([cross(rays_o, rays_d), rays_d], dim=-1)
 
 
 def c2w_to_polar(c2w) -> Tuple[float, float, float]:

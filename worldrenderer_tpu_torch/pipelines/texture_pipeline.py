@@ -33,6 +33,7 @@ from ..mesh import TexturedMesh, load_mesh
 from ..ops.tensor import fma_dot3
 from ..render import render
 from ..scene.gltf import _PNG_SIGNATURE, _decode_png, replace_glb_texture, save_glb
+from ..transforms import cross
 
 __all__ = ["ModProcessConfig", "TexturePipeline", "TexturePipelineOutput"]
 
@@ -189,15 +190,14 @@ class TexturePipeline:
         )
         v_n = out.normal
         v_t = out.tangent
-        v_b = torch.linalg.cross(v_n, v_t, dim=-1)
+        v_b = cross(v_n, v_t)
         tang_space = normalize(torch.stack([v_t, v_b, v_n], dim=-2))
 
         base = _ORTHO_BASE_TANGENTS[:nv] + _ORTHO_BASE_TANGENTS[:1] * max(0, nv - 6)
         geo_t = torch.tensor(base, dtype=torch.float32, device=v_n.device)
         v_gn = v_n
-        v_gb = torch.linalg.cross(v_gn, geo_t[:, None, None, :].expand_as(v_gn),
-                                  dim=-1)
-        v_gt = torch.linalg.cross(v_gb, v_gn, dim=-1)
+        v_gb = cross(v_gn, geo_t[:, None, None, :])
+        v_gt = cross(v_gb, v_gn)
         geo_tang_space = normalize(torch.stack([v_gt, v_gb, v_gn], dim=-2))
 
         m = mod_tensor * 2.0 - 1.0

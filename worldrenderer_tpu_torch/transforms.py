@@ -34,12 +34,17 @@ def mvp_columns(
 ) -> torch.Tensor:
     """(B, 4, 4) matrices times the points (x, y, z, 1), each (K,) ->
     (B, 4, K), in true fp32: the chain of fused multiply-adds
-    ``fma(m3, 1, fma(m2, z, fma(m1, y, m0 * x)))`` that XLA evaluates for
-    the JAX package's ``Precision.HIGHEST`` 4-term dot on the CPU, each FMA
-    rounded once (:func:`fma_f32`). So the CPU, the card and the reference
-    get the same clip coordinates — the rasterizer's coverage tests depend
-    on their last bits. Every clip coordinate in the port goes through
-    here."""
+    ``fma(m3, 1, fma(m2, z, fma(m1, y, m0 * x)))``, each FMA rounded once
+    (:func:`fma_f32`). So the CPU and the card get the same clip
+    coordinates — the rasterizer's coverage tests depend on their last
+    bits. Every clip coordinate in the port goes through here.
+
+    It is the order XLA's CPU GEMM takes for the JAX package's
+    ``Precision.HIGHEST`` 4-term dot at some vertex counts only: op by op
+    it matches at 128, 256, 512, 561, 1,024, 2,048 and 4,096 vertices; at
+    97, 100, 129, 200, 300, 1,000 and 2,081 XLA sums pairwise, ``(x m0 + y
+    m1) + (z m2 + m3)``, and at 153, 160, 2,079 and 2,080 it takes neither
+    form. The port keeps one order for every shape."""
     m = mvp.double()[..., None]  # (B, 4, 4, 1)
     acc = (m[:, :, 0] * x.double()).float()  # exact product, one rounding
     acc = fma_f32(m[:, :, 1], y.double(), acc.double())
@@ -96,3 +101,32 @@ def transform_points_homo(pos: torch.Tensor, mtx: torch.Tensor) -> torch.Tensor:
 def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Sum-product over the last dim, keepdim."""
     return torch.sum(x * y, dim=-1, keepdim=True)
+
+
+def cross(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The cross product of 3-vectors along ``dim`` (broadcast), rounded as
+    the JAX package's ``jnp.cross`` op by op: each component two rounded
+    products and one rounded difference, ``a1*b2 - a2*b1``, ``a2*b0 -
+    a0*b2``, ``a0*b1 - a1*b0``. Each operation is a torch op of its own, so
+    no device contracts it into an FMA (PyTorch's own cross product rounds
+    apart from it)."""
+    a0, a1, a2 = a.unbind(dim)
+    b0, b1, b2 = b.unbind(dim)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0],
+                       dim=dim)
+
+
+def norm(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
+    """The 2-norm along ``dim``, rounded as the JAX package's
+    ``jnp.linalg.norm`` op by op at the short axes the port takes norms of
+    (2, 3 and 4 long): each element squared and rounded, the squares summed
+    in index order, ``(x0² + x1²) + x2²``, the root taken in float64 and
+    rounded once (the CPU's fp32 ``torch.sqrt`` is not correctly rounded,
+    and ``linalg.vector_norm`` sums with FMAs). Each operation is a torch op
+    of its own, so the card rounds as the CPU does."""
+    sq = x * x
+    total = sq.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        total = total + sq.select(dim, i)
+    root = torch.sqrt(total.double()).to(x.dtype)
+    return root.unsqueeze(dim) if keepdim else root

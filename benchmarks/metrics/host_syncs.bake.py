@@ -1,0 +1,8 @@
+"""Points per bake inside ``wr::bake`` at which the host waits for the
+card (the program's ``host_sync.*`` counters)."""
+
+from harness.spans import host_syncs
+
+
+def read(t):
+    return host_syncs("wr::bake", t.counts.get("bakes"))

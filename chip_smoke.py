@@ -728,17 +728,26 @@ def zero_sign_check(kernel, plain, dev) -> None:
         f" share of -0 per tile {plain_neg})")
 
 
-def reset_counts(gc, zc, rk) -> None:
-    gc.launch_count = 0
-    rk.launch_count = 0
-    for name in zc.launch_counts:
-        zc.launch_counts[name] = 0
+# Each tile kernel's launch counter (``utils.debug.count``).
+KERNEL_COUNTERS = {"gbuffer_tiles": "launch.k1", "zattr_tiles": "launch.k2",
+                   "zattr_tiles_vpu": "launch.k3", "raster_zid_tiles": "launch.k4"}
 
 
-def read_counts(gc, zc, rk) -> dict:
+def reset_counts() -> dict:
+    """The launch counters' totals now, for :func:`read_counts`."""
+    from worldrenderer_tpu_torch.utils.debug import counter_totals
+
+    return counter_totals()
+
+
+def read_counts(since: dict) -> dict:
+    """Each tile kernel's launches after the totals ``since``."""
+    from worldrenderer_tpu_torch.utils.debug import counter_totals
+
     torch.cuda.synchronize()
-    return {"gbuffer_tiles": gc.launch_count,
-            "raster_zid_tiles": rk.launch_count, **zc.launch_counts}
+    now = counter_totals()
+    return {name: now.get(c, 0) - since.get(c, 0)
+            for name, c in KERNEL_COUNTERS.items()}
 
 
 def tile_winners_check(what, got_ids, inputs, n_vals, winners, plus_one) -> None:
@@ -956,9 +965,9 @@ def tiles_phase(pt, gc, zc, rk, dev, card) -> dict:
                 return pt.render(mesh, cam, 512, 512, raster_config=cfg,
                                  device=dev, **kw)
             entry = "render"
-        reset_counts(gc, zc, rk)
+        since = reset_counts()
         out = run()
-        counts = read_counts(gc, zc, rk)
+        counts = read_counts(since)
         launches[kernel] = launches.get(kernel, 0) + counts[kernel]
         if counts[kernel] < 1:
             raise AssertionError(f"{entry} with {backend} did not launch {kernel}")
@@ -985,9 +994,9 @@ def atlas_phase(pt, gc, zc, rk, dev, card) -> int:
         rast = pt.rasterize(c, m.t_tex_idx, (size, size), device=d)
         return rast, pt.interpolate(m.v_pos[None], rast, m.t_pos_idx, device=d)
 
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     rast, uv_pos = run()
-    counts = read_counts(gc, zc, rk)
+    counts = read_counts(since)
     if counts["raster_zid_tiles"] < 1:
         raise AssertionError("the atlas pass did not launch K4")
     cover = float((rast[..., 3] > 0).float().mean())
@@ -1019,9 +1028,9 @@ def classic_phase(pt, gc, zc, rk, dev, card) -> int:
     k1 = 0
     outs = {}
     for name, fn in (("rasterize", pt.rasterize), ("rasterize_db", pt.rasterize_db)):
-        reset_counts(gc, zc, rk)
+        since = reset_counts()
         outs[name] = fn(pos, tri, (512, 512), device=dev)
-        counts = read_counts(gc, zc, rk)
+        counts = read_counts(since)
         if counts["gbuffer_tiles"] < 1:
             raise AssertionError(f"{name} did not launch K1")
         k1 += counts["gbuffer_tiles"]
@@ -1072,9 +1081,9 @@ def flat_backends_phase(pt, gb, gc, zc, rk, dev, card, head_cfg, early) -> dict:
             return pt.rasterize_gbuffer(pos, tri, nrm, (512, 512), cfg,
                                         device=dev)
 
-        reset_counts(gc, zc, rk)
+        since = reset_counts()
         out = run()
-        counts = read_counts(gc, zc, rk)
+        counts = read_counts(since)
         if counts[kernel] < 1 or counts["gbuffer_tiles"]:
             raise AssertionError(f"rasterize_gbuffer with {backend} did not "
                                  f"run {kernel} alone: {counts}")
@@ -1426,19 +1435,22 @@ def probe_checks(head_k1, head_dims, dev, card) -> dict:
 
 
 def probes_phase() -> dict:
-    """The probes' own entry points, each count set to 0 just before and
-    read just after."""
+    """The probes' own entry points, each one's launches counted."""
     from worldrenderer_tpu_torch.probes import chunk_stream as p1
     from worldrenderer_tpu_torch.probes import smem_gather as p3
     from worldrenderer_tpu_torch.probes import transpose as p2
 
+    from worldrenderer_tpu_torch.utils.debug import counter_totals
+
     launches = {}
-    for name, mod in (("chunk_stream", p1), ("transpose", p2), ("smem_gather", p3)):
-        mod.launch_count = 0
+    for name, mod, counter in (("chunk_stream", p1, "launch.p1"),
+                               ("transpose", p2, "launch.p2"),
+                               ("smem_gather", p3, "launch.p3")):
+        before = counter_totals().get(counter, 0)
         if mod.main([]) != 0:
             raise AssertionError(f"the {name} probe failed")
         torch.cuda.synchronize()
-        launches[name] = mod.launch_count
+        launches[name] = counter_totals().get(counter, 0) - before
         if launches[name] < 1:
             raise AssertionError(f"the {name} probe did not launch its kernel")
         log("probes", f"{name} entry point: launches {launches[name]}")
@@ -1469,9 +1481,9 @@ def texture_phase(pt, gb, gc, zc, rk, dev, card) -> int:
         def run(m=m, c=c, mode=mode):
             return pt.render(m, cam, 1024, 1024, raster_config=c,
                              texture_pack_mode=mode, device=dev, **kw)
-        reset_counts(gc, zc, rk)
+        since = reset_counts()
         runs[name] = run()
-        counts = read_counts(gc, zc, rk)
+        counts = read_counts(since)
         if counts["gbuffer_tiles"] < 1:
             raise AssertionError(f"config4 {name} did not launch K1")
         k1 += counts["gbuffer_tiles"]
@@ -1562,9 +1574,9 @@ def attr_phase(pt, gc, zc, rk, dev, card, early) -> dict:
     for name, kernel, kw in attr_variants(pt):
         def run(kw=kw):
             return pt.render(mesh, cam, 512, 512, device=dev, **kw)
-        reset_counts(gc, zc, rk)
+        since = reset_counts()
         out = run()
-        counts = read_counts(gc, zc, rk)
+        counts = read_counts(since)
         if counts[kernel] < 1:
             raise AssertionError(f"[attr] {name} did not launch {kernel}")
         launches[kernel] = launches.get(kernel, 0) + counts[kernel]
@@ -1602,9 +1614,9 @@ def chunk_phase(pt, gc, zc, rk, dev, card) -> int:
     cfg = pt.auto_fast_config(pos, mesh.t_pos_idx, (512, 512), base=pt.FAST_TPU_CONFIG)
     kw = dict(render_attr=False, render_depth=True, render_normal=True,
               raster_config=cfg, device=dev)
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     chunked = pt.render(mesh, cam, 512, 512, view_chunk=8, **kw)
-    k1 = read_counts(gc, zc, rk)["gbuffer_tiles"]
+    k1 = read_counts(since)["gbuffer_tiles"]
     if k1 < 1:
         raise AssertionError("config2 with view_chunk did not launch K1")
     whole = pt.render(mesh, cam, 512, 512, **kw)
@@ -1632,9 +1644,9 @@ def ssaa_phase(pt, gc, zc, rk, dev, card) -> int:
     cfg = pt.auto_fast_config(pos, mesh.t_pos_idx, (1024, 1024))
     kw = dict(render_attr=False, render_depth=False, render_normal=True,
               raster_config=cfg, ssaa=2)
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     out = pt.render(mesh, cam, 512, 512, device=dev, **kw)
-    k1 = read_counts(gc, zc, rk)["gbuffer_tiles"]
+    k1 = read_counts(since)["gbuffer_tiles"]
     if k1 < 1:
         raise AssertionError("the ssaa render did not launch K1")
     ref = pt.render(mesh.to("cpu"), cam[[0, 3]].to("cpu"), 512, 512, device="cpu",
@@ -1775,9 +1787,9 @@ def town_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     def run():
         return pt.render(mesh, cam, h, w, device=dev, **kw)
 
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     out = run()
-    launches = read_counts(gc, zc, rk)["gbuffer_tiles"]
+    launches = read_counts(since)["gbuffer_tiles"]
     if launches < 1:
         raise AssertionError("town: render() did not launch K1")
     ms = cuda_ms(run, 20)
@@ -1923,9 +1935,9 @@ def tiny_phase(pt, gb, pr, gc, zc, rk, dev, card) -> dict:
             return pt.render(mesh, cam, 512, 512, raster_config=cfg,
                              device=dev, **kw)
 
-        reset_counts(gc, zc, rk)
+        since = reset_counts()
         out = run()
-        n = read_counts(gc, zc, rk)["gbuffer_tiles"]
+        n = read_counts(since)["gbuffer_tiles"]
         if n < 1:
             raise AssertionError(f"{name}: render() did not launch K1")
         launches["gbuffer_tiles"] += n
@@ -1964,12 +1976,12 @@ def tiny_phase(pt, gb, pr, gc, zc, rk, dev, card) -> dict:
 
     v, tri, attr = mixed_tiny_scene(dev)
     exact = pt.RasterizerConfig(backend="fused_pallas")
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     off = pt.rasterize_gbuffer(v, tri, attr, (256, 256), exact, device=dev)
     on_cfg = exact._replace(bin_tiny_px=1.0)
     st = pt.binning_stats(v, tri, (256, 256), on_cfg)
     on = pt.rasterize_gbuffer(v, tri, attr, (256, 256), on_cfg, device=dev)
-    launches["gbuffer_tiles"] += read_counts(gc, zc, rk)["gbuffer_tiles"]
+    launches["gbuffer_tiles"] += read_counts(since)["gbuffer_tiles"]
     equal = same_gbuffer_bits(on, off)
     log("tiny", f"mixed scene ({tri.shape[0]} triangles, 256², 5 attributes): "
         f"the sort path ({st['n_tiny_1px']} candidates, {st['n_tiny_cov']} "
@@ -1987,9 +1999,9 @@ def tiny_phase(pt, gb, pr, gc, zc, rk, dev, card) -> dict:
             return pt.rasterize_gbuffer(pos, tri, nrm, (512, 512), bcfg,
                                         device=dev)
 
-        reset_counts(gc, zc, rk)
+        since = reset_counts()
         run()
-        counts = read_counts(gc, zc, rk)
+        counts = read_counts(since)
         if counts[kernel] != 1 or counts["gbuffer_tiles"]:
             raise AssertionError(f"heightfield with {backend}: {counts}")
         launches[kernel] += counts[kernel]
@@ -2089,9 +2101,9 @@ def lod_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     def run():
         return pt.render(lod, cam, 512, 512, device=dev, **kw)
 
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     out = run()
-    launches = read_counts(gc, zc, rk)["gbuffer_tiles"]
+    launches = read_counts(since)["gbuffer_tiles"]
     if launches < 1:
         raise AssertionError("lod: render() did not launch K1")
     ms = cuda_ms(run, 20)
@@ -2142,10 +2154,10 @@ def subtile_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
             inputs, dims, _ = gb._k1_inputs(pos, mesh.t_pos_idx, mesh.v_nrm,
                                             *res, cfg, **kw)
             err = k1_against_plain(gc, inputs, dims)
-            reset_counts(gc, zc, rk)
+            since = reset_counts()
             out = pt.rasterize_gbuffer(pos, mesh.t_pos_idx, mesh.v_nrm, res,
                                        cfg, device=dev, **kw)
-            counts = read_counts(gc, zc, rk)
+            counts = read_counts(since)
             if counts["gbuffer_tiles"] != 1 or sum(counts.values()) != 1:
                 raise AssertionError(f"subtile: launches {counts}")
             launches += 1
@@ -2259,9 +2271,9 @@ def bake_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     def bake():
         return bake_pieces(pu, mesh, cam, views, cfg, dev, do_uv_padding=False)
 
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     bake()
-    counts = read_counts(gc, zc, rk)
+    counts = read_counts(since)
     # the atlas pass and the view renders, one K1 launch each
     if counts["gbuffer_tiles"] != 2 or sum(counts.values()) != 2:
         raise AssertionError(f"bake: launches {counts}")
@@ -2285,9 +2297,9 @@ def bake_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
         f"({100 * bound / atlas_ms:.0f}%)")
 
     kw = dict(uv_size=BAKE_UV, poisson_blending=False, raster_config=cfg)
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     out = pp.camera_projection(views, mesh, cam=cam, device=dev, **kw)
-    launches = read_counts(gc, zc, rk)["gbuffer_tiles"]
+    launches = read_counts(since)["gbuffer_tiles"]
     e2e_ms = cuda_ms(lambda: pp.camera_projection(views, mesh, cam=cam,
                                                   device=dev, **kw), 3)
     baked = int(out.uv_proj_mask.sum())
@@ -2320,9 +2332,9 @@ def bake_full_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     def bake():
         return bake_pieces(pu, mesh, cam, views, cfg, dev, **full)
 
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     pre, geo, attr, out = bake()
-    counts = read_counts(gc, zc, rk)
+    counts = read_counts(since)
     if counts["gbuffer_tiles"] != 2 or sum(counts.values()) != 2:
         raise AssertionError(f"bake_full: launches {counts}")
     if not torch.isfinite(out.uv_attr_blend).all():
@@ -2476,9 +2488,9 @@ def diff_phase(pt, gb, gc, zc, rk, dev, card, refs) -> dict:
             return diff_loss(pt, p, tri, uv, cfg, dev)
 
         p = pos.clone().requires_grad_(True)
-        reset_counts(gc, zc, rk)
+        since = reset_counts()
         loss(p).backward()
-        counts = read_counts(gc, zc, rk)
+        counts = read_counts(since)
         if counts[kernel] != 1 or sum(counts.values()) != 1:
             raise AssertionError(f"diff {name}: launches {counts}")
         launches[kernel] += counts[kernel]
@@ -2505,9 +2517,9 @@ def diff_phase(pt, gb, gc, zc, rk, dev, card, refs) -> dict:
 
     mesh, cam, cfg, kw, target = fit_scene(pt, dev)
     tex = torch.full_like(mesh.texture, 0.5).requires_grad_(True)
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     fit_loss(pt, mesh, cam, target, tex, kw).backward()
-    counts = read_counts(gc, zc, rk)
+    counts = read_counts(since)
     if counts["gbuffer_tiles"] != 1 or sum(counts.values()) != 1:
         raise AssertionError(f"diff config4 fit: launches {counts}")
     launches["gbuffer_tiles"] += 1
@@ -2809,10 +2821,10 @@ def warp_phase(pt, gb, gc, zc, rk, dev, card, s10) -> dict:
         pres.append(real(*a, **k))
         return pres[-1]
 
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     with mock.patch.object(pp, "uv_precompute", keep_pre):
         out = pp.camera_projection(src, mesh, cam=cam, device=dev, **kw)
-    counts = read_counts(gc, zc, rk)
+    counts = read_counts(since)
     if counts["gbuffer_tiles"] != 3 or sum(counts.values()) != 3:
         raise AssertionError(f"warp: camera_projection launches {counts}")
     bake_ms = cuda_ms(lambda: pp.camera_projection(src, mesh, cam=cam,
@@ -2876,14 +2888,14 @@ def paint_phase(pt, gb, gc, zc, rk, dev, card, s10) -> dict:
     kw = dict(max_view_score_thresh=0.02, min_rounds=4, max_rounds=8,
               uv_padding_end=True, score_render_size=PAINT_SCORE,
               inpaint_render_size=PAINT_INPAINT)
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, covered = painter(mesh, ps.default_inpaint_func, tex, hole, device=dev,
                            **kw)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    counts = read_counts(gc, zc, rk)
+    counts = read_counts(since)
     rounds = len(painter.history)
     # a round: the score render, the two 1024² renders, the projection's
     # atlas and view maps
@@ -3229,14 +3241,14 @@ def app_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
 
     # The first call: counted, traced (device only), K1's inputs kept.
     kept = {}
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     with k1_inputs_kept(gb, kept):
         first_s = log_profile("app", "project_and_render, the first call "
                               "(device only)", lambda: app_call(
                                   footage, work, APP_RES, APP_UV, dev,
                                   announce=True),
                               reps=1, warm=False, host_ops=False) / 1e3
-    counts = read_counts(gc, zc, rk)
+    counts = read_counts(since)
     if counts["gbuffer_tiles"] < 1:
         raise AssertionError(f"app: project_and_render launched {counts}")
 
@@ -3346,11 +3358,11 @@ def texpipe_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
         torch.cuda.synchronize()
         marks.append(("end", time.perf_counter()))
 
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     with k1_inputs_kept(gb, kept):
         call_s = log_profile("texpipe", "TexturePipeline (device only)", call,
                              reps=1, warm=False, host_ops=False) / 1e3
-    counts = read_counts(gc, zc, rk)
+    counts = read_counts(since)
     if counts["gbuffer_tiles"] < 1:
         raise AssertionError(f"texpipe: TexturePipeline launched {counts}")
     (out, tp), = outs
@@ -3455,10 +3467,10 @@ def shard_bake_check(pt, gb, gc, zc, rk, dev, card) -> int:
                                     texel_chunks=chunks, **kw)
 
     kept = {}
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     with k1_inputs_kept(gb, kept):
         out = bake()
-    counts = read_counts(gc, zc, rk)
+    counts = read_counts(since)
     # the atlas and the view renders, once each on the one device
     if counts["gbuffer_tiles"] != 2 or sum(counts.values()) != 2:
         raise AssertionError(f"shard: the sharded bake launched {counts}")
@@ -3504,9 +3516,9 @@ def shard_sweep_checks(pt, gc, zc, rk, dev, card) -> int:
     hcfg = headline_cfg(pt, head, hcam)
     kw = dict(render_attr=False, render_depth=True, render_normal=True,
               raster_config=hcfg)
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     out = sweep.render_views_sharded(head, hcam, 512, 512, dm, **kw)
-    launches = read_counts(gc, zc, rk)["gbuffer_tiles"]
+    launches = read_counts(since)["gbuffer_tiles"]
     ref = pt.render(head, hcam, 512, 512, device=dev, **kw)
     same = all(same_bits(getattr(out, f), getattr(ref, f))
                for f in ("mask", "pos", "depth", "normal"))
@@ -3526,11 +3538,11 @@ def shard_sweep_checks(pt, gc, zc, rk, dev, card) -> int:
     work = APP_DIR / "sweep"
     shutil.rmtree(work, ignore_errors=True)
     run = runner.SweepRunner(str(work), device_mesh=dm)
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     t0 = time.perf_counter()
     results = run.run(jobs)
     sweep_s = time.perf_counter() - t0
-    launches += read_counts(gc, zc, rk)["gbuffer_tiles"]
+    launches += read_counts(since)["gbuffer_tiles"]
     lines = []
     for job, res in zip(jobs, results):
         padded = runner.pad_mesh_to_bucket(job.mesh)
@@ -3567,14 +3579,14 @@ def shard_fit_check(pt, gc, zc, rk, dev, card) -> int:
     tex = torch.full_like(mesh.texture, 0.5).requires_grad_(True)
     opt = torch.optim.Adam([tex], lr=FIT_LR)
     step = sweep.make_texture_fit_step(opt, FIT_RES, FIT_RES, raster_config=cfg)
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     t0 = time.perf_counter()
     losses = []
     for _ in range(FIT_STEPS):
         tex, _, loss = step(tex, None, mesh, cam, target)
         losses.append(float(loss))
     fit_s = (time.perf_counter() - t0) / FIT_STEPS
-    launches = read_counts(gc, zc, rk)["gbuffer_tiles"]
+    launches = read_counts(since)["gbuffer_tiles"]
     plain = torch.full_like(mesh.texture, 0.5).requires_grad_(True)
     popt = torch.optim.Adam([plain], lr=FIT_LR)
     plain_losses = []
@@ -3610,10 +3622,10 @@ def shard_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     k1 += shard_sweep_checks(pt, gc, zc, rk, dev, card)
     k1 += shard_fit_check(pt, gc, zc, rk, dev, card)
 
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     gate = validate.precision_gate(quiet=True, device=dev)
     probes = validate.degenerate_probes(quiet=True, device=dev)
-    counts = read_counts(gc, zc, rk)
+    counts = read_counts(since)
     log("shard", f"precision_gate (K1 vs K3, 512²): ok {gate['ok']}; "
         + "; ".join(gate["scenes"]))
     log("shard", f"degenerate_probes (256²): ok {probes['ok']}; "
@@ -4109,9 +4121,9 @@ def run_phases(pt, gb, pr, gc, zc, rk, dev, card, late, mark, t_start,
     # Phase 4: the main path through render(), launch counts around it.
     kw = dict(render_attr=False, render_depth=False, render_normal=True,
               raster_config=head_cfg)
-    reset_counts(gc, zc, rk)
+    since = reset_counts()
     out = pt.render(mesh, cam, 512, 512, device=dev, **kw)
-    launches = read_counts(gc, zc, rk)["gbuffer_tiles"]
+    launches = read_counts(since)["gbuffer_tiles"]
     if launches < 1:
         raise AssertionError("render() did not launch K1")
     log("main", f"render(): K1 launches {launches}")

@@ -41,10 +41,10 @@ from worldrenderer_tpu.scene import ply as jply
 from worldrenderer_tpu.transforms import get_clip_space_position as j_clip
 
 import worldrenderer_tpu_torch as pt
-from worldrenderer_tpu_torch.ops import gbuffer_cuda
 from worldrenderer_tpu_torch.scene import camera_json as pcam
 from worldrenderer_tpu_torch.scene import gltf as pgltf
 from worldrenderer_tpu_torch.scene import ply as pply
+from worldrenderer_tpu_torch.utils.debug import counter_totals
 
 DATA = Path(__file__).parent / "data"
 GLB = DATA / "town.glb"
@@ -512,10 +512,10 @@ def test_town_render_within_flip_budget_of_jitted_jax(one_torch_thread):
     of tests/test_town_fixture.py."""
     jm, jc, pm, pc, jcfg, pcfg = _town()
     assert pcfg.backend == "fused_pallas" and pcfg.backface_cull == -1
-    before = gbuffer_cuda.launch_count
+    before = counter_totals().get("launch.k1", 0)
     po = pt.render(pm, pc, TOWN_H, TOWN_W, raster_config=pcfg, device="cpu",
                    **RENDER_KW)
-    assert gbuffer_cuda.launch_count == before  # the CPU path does not launch
+    assert counter_totals().get("launch.k1", 0) == before  # the CPU path does not launch
     jo = jax.jit(functools.partial(wr.render, height=TOWN_H, width=TOWN_W,
                                    raster_config=jcfg, **RENDER_KW))(jm, jc)
     m = _np(jo.mask)

@@ -21,6 +21,7 @@ import worldrenderer_tpu.ops.gbuffer_pallas  # noqa: F401
 import worldrenderer_tpu_torch as pt
 from worldrenderer_tpu_torch.ops import gbuffer as pg
 from worldrenderer_tpu_torch.ops import gbuffer_cuda as pc
+from worldrenderer_tpu_torch.utils.debug import counter_totals
 import worldrenderer_tpu_torch.ops.rasterize  # noqa: F401  (sys.modules below)
 
 from chip_smoke import synthetic_k1_inputs, synthetic_k1_tie_inputs
@@ -234,10 +235,10 @@ def test_gbuffer_tiles_plain_tie_rule_and_empty_tiles():
 
 def test_kernel_wrapper_takes_plain_version_on_cpu():
     (recs, ids, start, nch), dims = synthetic_k1_inputs("cpu")
-    before = pc.launch_count
+    before = counter_totals().get("launch.k1", 0)
     got = pc.gbuffer_tiles(recs, ids, start, nch, *dims)
     want = pc.gbuffer_tiles_plain(recs, ids, start, nch, *dims)
-    assert pc.launch_count == before
+    assert counter_totals().get("launch.k1", 0) == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     with pytest.raises(TypeError):

@@ -68,6 +68,7 @@ from worldrenderer_tpu_torch.ops import gbuffer as pg
 from worldrenderer_tpu_torch.ops import raster_zid_cuda as pk
 import worldrenderer_tpu_torch.ops.rasterize  # noqa: F401  (sys.modules below)
 from worldrenderer_tpu_torch.ops import zattr_cuda as pz
+from worldrenderer_tpu_torch.utils.debug import counter_totals
 
 from chip_smoke import (
     slot_tie_tile_inputs,
@@ -372,10 +373,10 @@ def test_tile_kernel_wrappers_take_plain_versions_on_cpu(kernel):
     launch; it refuses wrong types and shapes."""
     co, co4, ids, counts = synthetic_tile_inputs("cpu")
     if kernel == "raster_zid_tiles":
-        before = pk.launch_count
+        before = counter_totals().get("launch.k4", 0)
         got = pk.raster_zid_tiles(co4, ids, counts, 16, 128, 128)
         z, slot = pk.raster_zid_tiles_plain(co4, counts, 16, 128, 128)
-        assert pk.launch_count == before
+        assert counter_totals().get("launch.k4", 0) == before
         assert torch.equal(got[0], z)
         assert torch.equal(got[1], pk.ids_from_slots(slot, ids))
         with pytest.raises(TypeError):
@@ -384,12 +385,12 @@ def test_tile_kernel_wrappers_take_plain_versions_on_cpu(kernel):
             pk.raster_zid_tiles(co4[:, :, :-4].contiguous(), ids, counts, 16,
                                 128, 128)
         return
-    before = dict(pz.launch_counts)
+    before = counter_totals()
     plain = getattr(pz, f"{kernel}_plain")
     for a, b in zip(getattr(pz, kernel)(co, counts, 2, 16, 128, 128),
                     plain(co, counts, 2, 16, 128, 128)):
         assert torch.equal(a, b)
-    assert pz.launch_counts == before
+    assert counter_totals() == before
     with pytest.raises(TypeError):
         getattr(pz, kernel)(co, counts.long(), 2, 16, 128, 128)
     with pytest.raises(ValueError):

@@ -29,6 +29,7 @@ import torch
 from worldrenderer_tpu_torch.probes import chunk_stream as p1
 from worldrenderer_tpu_torch.probes import smem_gather as p3
 from worldrenderer_tpu_torch.probes import transpose as p2
+from worldrenderer_tpu_torch.utils.debug import counter_totals
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -86,10 +87,10 @@ def _p1_numpy(x, starts, nch, n_tiles, th, tw, c):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_chunk_stream_matches_the_tpu_probe(seed):
     x, starts, nch, dims = _p1_case(seed)
-    before = p1.launch_count
+    before = counter_totals().get("launch.p1", 0)
     got = p1.chunk_stream(torch.from_numpy(x), torch.from_numpy(starts),
                           torch.from_numpy(nch), *dims).numpy()
-    assert p1.launch_count == before  # the CPU path does not launch
+    assert counter_totals().get("launch.p1", 0) == before  # the CPU path does not launch
     n_tiles, th, tw, c = dims
     want = np.asarray(_tool("spike_dma").run(
         jnp.asarray(x), jnp.asarray(starts), jnp.asarray(nch), n_tiles, th, tw,
@@ -162,9 +163,9 @@ def test_transpose_matches_the_tpu_probe(shape):
     x3 = np.random.default_rng(sum(shape)).standard_normal(shape).astype(np.float32)
     v, r, n = shape
     want = np.asarray(jnp.asarray(x3).transpose(0, 2, 1).reshape(v * n, r))
-    before = p2.launch_count
+    before = counter_totals().get("launch.p2", 0)
     got = p2.transpose(torch.from_numpy(x3))
-    assert p2.launch_count == before
+    assert counter_totals().get("launch.p2", 0) == before
     np.testing.assert_array_equal(got.numpy(), want)
     if v * n > 123 and r > 7:  # the probe's checksum reads row 123, column 7
         assert p2.checksum(got) == pytest.approx(
@@ -184,9 +185,9 @@ def test_smem_gather_matches_the_tpu_probe(axis):
 
     want = np.asarray(jax.lax.fori_loop(0, t_reps, body,
                                         jnp.zeros((rows, p3.LANES), jnp.float32)))
-    before = p3.launch_count
+    before = counter_totals().get("launch.p3", 0)
     got = p3.smem_gather(x, idx, t_reps, axis)
-    assert p3.launch_count == before
+    assert counter_totals().get("launch.p3", 0) == before
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -20,6 +20,7 @@ from ..mesh import TexturedMesh
 from ..ops.rasterize import DEFAULT_CONFIG, RasterizerConfig, binning_stats
 from ..render import render
 from ..transforms import get_clip_space_position
+from ..utils.debug import annotate, count
 from .uv import (
     ExponentialBlend,
     SimpleUVValidityStrategy,
@@ -54,6 +55,11 @@ def _validate_binning_budgets(mesh: TexturedMesh, cam: Camera, height: int,
     in either of the projection's rasterizations: the view render of
     t_pos_idx, and the UV atlas of t_tex_idx, which runs with the cull off
     (as :func:`uv_precompute` does)."""
+    with annotate("wr::bake.validate_binning"):
+        _validate_budgets(mesh, cam, height, width, uv_size, config)
+
+
+def _validate_budgets(mesh, cam, height, width, uv_size, config) -> None:
     if config.bin_mode != "sort_pairs":
         return
     checks = []
@@ -220,99 +226,101 @@ def camera_projection(
             raster_config=raster_config, verbose=verbose,
             validate_binning=validate_binning,
             images_pack_mode=images_pack_mode, texel_chunks=texel_chunks)
-    if warp_images and images_background is None:
-        raise ValueError("warp_images needs images_background, the "
-                         "background of the renders the views are fitted to")
-    dev = resolve_device(device)
-    if images_pack_mode == "auto":
-        # Warped images are no longer 255-quantized.
-        images_pack_mode = "none" if warp_images else _auto_pack_mode(images)
-    images = torch.as_tensor(images, dtype=torch.float32, device=dev)
-    if images.ndim != 4:
-        raise ValueError("images must be (Nv, H, W, C)")
-    _, height, width, _ = images.shape
-    mesh = mesh.to(dev)
+    with annotate("wr::bake"):
+        if warp_images and images_background is None:
+            raise ValueError("warp_images needs images_background, the "
+                             "background of the renders the views are fitted to")
+        dev = resolve_device(device)
+        if images_pack_mode == "auto":
+            # Warped images are no longer 255-quantized.
+            images_pack_mode = "none" if warp_images else _auto_pack_mode(images)
+        images = torch.as_tensor(images, dtype=torch.float32, device=dev)
+        if images.ndim != 4:
+            raise ValueError("images must be (Nv, H, W, C)")
+        _, height, width, _ = images.shape
+        mesh = mesh.to(dev)
 
-    masks_t = None
-    if masks is not None:
-        masks_t = torch.as_tensor(masks, dtype=torch.float32, device=dev)
-    elif remove_bg:
-        if bg_remover is None:
-            raise ValueError("remove_bg requires a bg_remover")
-        masks_t = torch.as_tensor(bg_remover(images), dtype=torch.float32,
-                                  device=dev)
-    if masks_t is not None and masks_t.ndim == 4:
-        masks_t = masks_t.mean(-1)
+        masks_t = None
+        if masks is not None:
+            masks_t = torch.as_tensor(masks, dtype=torch.float32, device=dev)
+        elif remove_bg:
+            if bg_remover is None:
+                raise ValueError("remove_bg requires a bg_remover")
+            masks_t = torch.as_tensor(bg_remover(images), dtype=torch.float32,
+                                      device=dev)
+        if masks_t is not None and masks_t.ndim == 4:
+            masks_t = masks_t.mean(-1)
 
-    if cam is None:
-        cam = get_camera(elevation_deg=elevation_deg, distance=distance,
-                         fovy_deg=fovy_deg, azimuth_deg=azimuth_deg,
-                         num_views=num_views, c2w=c2w,
-                         aspect_wh=width / height, device=dev)
-    cam = cam.to(dev)
-    if validate_binning:
-        _validate_binning_budgets(mesh, cam, height, width, uv_size,
-                                  raster_config)
+        if cam is None:
+            cam = get_camera(elevation_deg=elevation_deg, distance=distance,
+                             fovy_deg=fovy_deg, azimuth_deg=azimuth_deg,
+                             num_views=num_views, c2w=c2w,
+                             aspect_wh=width / height, device=dev)
+        cam = cam.to(dev)
+        if validate_binning:
+            _validate_binning_budgets(mesh, cam, height, width, uv_size,
+                                      raster_config)
 
-    pre = uv_precompute(mesh, uv_size, uv_size, raster_config=raster_config,
-                        device=dev)
-    geo = uv_render_geometry(
-        mesh, cam, height, width, pre, compute_depth_grad=True,
-        depth_grad_dilation=depth_grad_dilation, raster_config=raster_config,
-        device=dev,
-    )
+        pre = uv_precompute(mesh, uv_size, uv_size, raster_config=raster_config,
+                            device=dev)
+        geo = uv_render_geometry(
+            mesh, cam, height, width, pre, compute_depth_grad=True,
+            depth_grad_dilation=depth_grad_dilation, raster_config=raster_config,
+            device=dev,
+        )
 
-    if masks_t is not None and iou_rejection_threshold is not None:
-        given = (masks_t > 0.5).float()
-        rendered = geo.view_mask.float()
-        inter = given * rendered
-        union = given + rendered - inter
-        iou = (inter.sum((1, 2)) / union.sum((1, 2))).cpu()  # one host read
-        iou_min = float(iou.min())
-        if verbose:
-            print(f"Per-view IoU: {iou.tolist()}")
-        if iou_min < iou_rejection_threshold:
+        if masks_t is not None and iou_rejection_threshold is not None:
+            given = (masks_t > 0.5).float()
+            rendered = geo.view_mask.float()
+            inter = given * rendered
+            union = given + rendered - inter
+            count("host_sync.iou")
+            iou = (inter.sum((1, 2)) / union.sum((1, 2))).cpu()  # one host read
+            iou_min = float(iou.min())
             if verbose:
-                print(f"Minimum view IoU {iou_min} below threshold "
-                      f"{iou_rejection_threshold}, skipping camera projection")
-            return None
+                print(f"Per-view IoU: {iou.tolist()}")
+            if iou_min < iou_rejection_threshold:
+                if verbose:
+                    print(f"Minimum view IoU {iou_min} below threshold "
+                          f"{iou_rejection_threshold}, skipping camera projection")
+                return None
 
-    if warp_images:
-        target = render(mesh, cam, height, width, render_attr=True,
-                        render_depth=False, render_normal=False,
-                        attr_background=images_background,
-                        raster_config=raster_config, device=dev).attr
-        images = compute_warp_field(images, target, n_grid=10,
-                                    optim_res=(64, 128), optim_step_per_res=20,
-                                    lambda_reg=2.0, device=dev)
+        if warp_images:
+            target = render(mesh, cam, height, width, render_attr=True,
+                            render_depth=False, render_normal=False,
+                            attr_background=images_background,
+                            raster_config=raster_config, device=dev).attr
+            images = compute_warp_field(images, target, n_grid=10,
+                                        optim_res=(64, 128), optim_step_per_res=20,
+                                        lambda_reg=2.0, device=dev)
 
-    attr = uv_render_attr(images, geo, masks=masks_t,
-                          pack_mode=images_pack_mode, device=dev)
-    for name, v in (("pos_error_eps", pos_error_eps),
-                    ("depth_grad_threshold", depth_grad_threshold)):
-        if isinstance(v, str) and v != "auto":
-            raise ValueError(f"{name}: float or 'auto', got {v!r}")
-    if isinstance(pos_error_eps, str) or isinstance(depth_grad_threshold, str):
-        footprint = _auto_footprint(cam, geo.view_mask, geo.view_depth, height)
-        if isinstance(pos_error_eps, str):
-            pos_error_eps = _AUTO_POS_EPS_FOOTPRINTS * footprint
-        if isinstance(depth_grad_threshold, str):
-            depth_grad_threshold = _AUTO_DEPTH_GRAD_FOOTPRINTS * footprint
-    blend = uv_blend(
-        pre, geo, attr,
-        uv_validity_strategy=SimpleUVValidityStrategy(
-            pos_error_eps=pos_error_eps, aoi_cos_thresh=aoi_cos_valid_threshold,
-            depth_grad_thresh=depth_grad_threshold),
-        uv_blend_weight_strategy=ExponentialBlend(
-            alpha=uv_exp_blend_alpha, view_weight=uv_exp_blend_view_weight),
-        empty_value=1.0, do_uv_padding=uv_padding, pad_unseen_area=from_scratch,
-        poisson_blending=poisson_blending, pb_num_iters=pb_num_iters,
-        pb_keep_original_border=pb_keep_original_border, device=dev,
-    )
-    return CameraProjectionOutput(
-        uv_proj=blend.uv_attr_blend, uv_proj_mask=blend.uv_valid_mask_blend,
-        uv_depth_grad=geo.uv_depth_grad, uv_aoi_cos=geo.uv_aoi_cos,
-    )
+        attr = uv_render_attr(images, geo, masks=masks_t,
+                              pack_mode=images_pack_mode, device=dev)
+        for name, v in (("pos_error_eps", pos_error_eps),
+                        ("depth_grad_threshold", depth_grad_threshold)):
+            if isinstance(v, str) and v != "auto":
+                raise ValueError(f"{name}: float or 'auto', got {v!r}")
+        if isinstance(pos_error_eps, str) or isinstance(depth_grad_threshold, str):
+            footprint = _auto_footprint(cam, geo.view_mask, geo.view_depth, height)
+            if isinstance(pos_error_eps, str):
+                pos_error_eps = _AUTO_POS_EPS_FOOTPRINTS * footprint
+            if isinstance(depth_grad_threshold, str):
+                depth_grad_threshold = _AUTO_DEPTH_GRAD_FOOTPRINTS * footprint
+        blend = uv_blend(
+            pre, geo, attr,
+            uv_validity_strategy=SimpleUVValidityStrategy(
+                pos_error_eps=pos_error_eps, aoi_cos_thresh=aoi_cos_valid_threshold,
+                depth_grad_thresh=depth_grad_threshold),
+            uv_blend_weight_strategy=ExponentialBlend(
+                alpha=uv_exp_blend_alpha, view_weight=uv_exp_blend_view_weight),
+            empty_value=1.0, do_uv_padding=uv_padding, pad_unseen_area=from_scratch,
+            poisson_blending=poisson_blending, pb_num_iters=pb_num_iters,
+            pb_keep_original_border=pb_keep_original_border, device=dev,
+        )
+        return CameraProjectionOutput(
+            uv_proj=blend.uv_attr_blend, uv_proj_mask=blend.uv_valid_mask_blend,
+            uv_depth_grad=geo.uv_depth_grad, uv_aoi_cos=geo.uv_aoi_cos,
+        )
 
 
 class CameraProjection:

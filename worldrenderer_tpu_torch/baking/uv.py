@@ -31,6 +31,7 @@ from ..ops.rasterize import DEFAULT_CONFIG, RasterizerConfig, rasterize
 from ..ops.tensor import fma_dot3, sqrt_f32
 from ..render import SimpleNormalization, render
 from ..transforms import get_clip_space_position
+from ..utils.debug import annotate
 
 __all__ = [
     "UVPrecomputeOutput",
@@ -97,7 +98,12 @@ def uv_precompute(
     ``bin_sort_pairs_min_tris`` texture triangles take one fused G-buffer
     pass that interpolates v_pos over t_pos_idx (K1 for the K1 backends);
     fewer take classic ``rasterize`` (K4) and ``interpolate``."""
-    dev = resolve_device(device)
+    with annotate("wr::bake.uv_precompute"):
+        return _uv_precompute(mesh, height, width, raster_config,
+                              resolve_device(device))
+
+
+def _uv_precompute(mesh, height, width, raster_config, dev):
     mesh = mesh.to(dev)
     if raster_config.backface_cull:
         raster_config = raster_config._replace(backface_cull=0)
@@ -163,7 +169,15 @@ def uv_view_geometry(
     """Render the per-view G-buffers and the maps derived from them: the
     camera-space angle-of-incidence cosine and the dilated depth
     gradient."""
-    dev = resolve_device(device)
+    with annotate("wr::bake.view_geometry"):
+        return _uv_view_geometry(mesh, cam, view_height, view_width,
+                                 compute_depth_grad, depth_grad_dilation,
+                                 render_attr, raster_config,
+                                 resolve_device(device))
+
+
+def _uv_view_geometry(mesh, cam, view_height, view_width, compute_depth_grad,
+                      depth_grad_dilation, render_attr, raster_config, dev):
     cam = cam.to(dev)
     out = render(
         mesh, cam, view_height, view_width,
@@ -207,7 +221,15 @@ def uv_gather_geometry(
     """The texel-space half of :func:`uv_render_geometry`: project each
     texel's world position into every view and gather the view maps (and
     optional images / masks) there, in one row gather."""
-    dev = resolve_device(device)
+    with annotate("wr::bake.gather_geometry"):
+        return _uv_gather_geometry(view_geo, cam, uv_precompute_output,
+                                   grid_sample_mode, sample_images,
+                                   sample_masks, images_pack_mode,
+                                   resolve_device(device))
+
+
+def _uv_gather_geometry(view_geo, cam, uv_precompute_output, grid_sample_mode,
+                        sample_images, sample_masks, images_pack_mode, dev):
     view_geo, pre, cam = _to(view_geo, dev), _to(uv_precompute_output, dev), cam.to(dev)
     batch_size = len(cam)
     height, width, _ = pre.uv_pos.shape
@@ -317,7 +339,14 @@ def uv_render_attr(
     ``pack_mode="u8"`` gathers the image taps byte-packed (exact for
     255-quantized images); the masks ride unpacked fp32 columns of the same
     gather."""
-    dev = resolve_device(device)
+    with annotate("wr::bake.gather_images"):
+        return _uv_render_attr(images, uv_render_geometry_output, masks,
+                               grid_sample_mode, pack_mode,
+                               resolve_device(device))
+
+
+def _uv_render_attr(images, uv_render_geometry_output, masks, grid_sample_mode,
+                    pack_mode, dev):
     ndc = uv_render_geometry_output.uv_pos_ndc.to(dev)
     images = torch.as_tensor(images, dtype=torch.float32, device=dev)
     uv_mask_proj = None
@@ -428,10 +457,11 @@ class RandomChoiceBlend(NamedTuple):
 def uv_padding(attr: torch.Tensor, inside_mask: torch.Tensor, radius: int,
                device: DeviceLike = None) -> torch.Tensor:
     """Pad UV gutters: inpaint outside ``inside_mask``, ``radius`` steps."""
-    dev = resolve_device(device)
-    attr = torch.as_tensor(attr, dtype=torch.float32, device=dev)
-    inside = torch.as_tensor(inside_mask, device=dev).bool()
-    return inpaint(torch.clamp(attr, 0.0, 1.0), ~inside, radius, device=dev)
+    with annotate("wr::bake.padding"):
+        dev = resolve_device(device)
+        attr = torch.as_tensor(attr, dtype=torch.float32, device=dev)
+        inside = torch.as_tensor(inside_mask, device=dev).bool()
+        return inpaint(torch.clamp(attr, 0.0, 1.0), ~inside, radius, device=dev)
 
 
 class UVBlendOutput(NamedTuple):
@@ -491,16 +521,19 @@ def uv_blend_sum(
 ) -> UVBlendOutput:
     """The per-texel half of :func:`uv_blend`: validity, blend weights and
     the raw weighted view sum (no stitching, padding or Poisson)."""
-    dev = resolve_device(device)
-    pre = _to(uv_precompute_output, dev)
-    geo = _to(uv_render_geometry_output, dev)
-    attr = None if uv_render_attr_output is None else _to(uv_render_attr_output, dev)
-    uv_valid_mask = uv_validity_strategy(pre, geo, attr)
-    uv_blend_weight = uv_blend_weight_strategy(pre, geo, attr, uv_valid_mask)
-    uv_valid_mask_blend = uv_valid_mask.any(dim=0)
-    uv_attr_blend = None
-    if attr is not None:
-        uv_attr_blend = _sum_views(attr.uv_attr_proj * uv_blend_weight[..., None])
+    with annotate("wr::bake.blend"):
+        dev = resolve_device(device)
+        pre = _to(uv_precompute_output, dev)
+        geo = _to(uv_render_geometry_output, dev)
+        attr = (None if uv_render_attr_output is None
+                else _to(uv_render_attr_output, dev))
+        uv_valid_mask = uv_validity_strategy(pre, geo, attr)
+        uv_blend_weight = uv_blend_weight_strategy(pre, geo, attr, uv_valid_mask)
+        uv_valid_mask_blend = uv_valid_mask.any(dim=0)
+        uv_attr_blend = None
+        if attr is not None:
+            uv_attr_blend = _sum_views(attr.uv_attr_proj
+                                       * uv_blend_weight[..., None])
     return UVBlendOutput(uv_attr_blend=uv_attr_blend, uv_valid_mask=uv_valid_mask,
                          uv_valid_mask_blend=uv_valid_mask_blend,
                          uv_blend_weight=uv_blend_weight)
@@ -551,9 +584,10 @@ def uv_blend_post(
                    "cropped": poisson_blend_cropped}
         if pb_solver not in solvers:
             raise ValueError(f"unknown pb_solver {pb_solver!r}")
-        uv_attr_blend = solvers[pb_solver](
-            padded, blend_mask, pb_tgt, num_iters=pb_num_iters,
-            grad_mode=pb_grad_mode, device=dev)
+        with annotate("wr::bake.poisson"):
+            uv_attr_blend = solvers[pb_solver](
+                padded, blend_mask, pb_tgt, num_iters=pb_num_iters,
+                grad_mode=pb_grad_mode, device=dev)
     else:
         uv_attr_blend = uv_attr_blend * blend_f + pre.uv_attr * (1.0 - blend_f)
     if do_uv_padding:

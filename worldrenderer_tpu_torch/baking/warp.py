@@ -29,6 +29,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..ops.grid_sample import grid_sample
 from ..transforms import norm
+from ..utils.debug import count
 
 __all__ = ["construct_grid_mesh", "compute_warp_field"]
 
@@ -150,6 +151,7 @@ def compute_warp_field(
     src = torch.as_tensor(src_images, dtype=torch.float32, device=dev)
     tgt = torch.as_tensor(tgt_images, dtype=torch.float32, device=dev)
     verts_np, _faces, edges_np, movable_np = construct_grid_mesh(n_grid)
+    count("host_sync.warp_grid", 3)  # three copies from the host
     verts0 = torch.tensor(verts_np[:, :2], dtype=torch.float32, device=dev)
     edges = torch.tensor(edges_np, device=dev)
     movable = torch.tensor(movable_np, dtype=torch.float32, device=dev)[:, None]

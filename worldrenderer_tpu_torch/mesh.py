@@ -14,6 +14,7 @@ import torch
 from ._device import DeviceLike, resolve_device
 from .camera import normalize
 from .transforms import cross, dot
+from .utils.debug import annotate, count
 
 __all__ = [
     "TexturedMesh",
@@ -90,10 +91,12 @@ def _sum_to_vertices(vals: torch.Tensor, t_pos_idx: torch.Tensor, n: int) -> tor
     every device and run."""
     idx = t_pos_idx.T.reshape(-1)  # (3T,) corner-major
     order = torch.argsort(idx, stable=True)
+    count("host_sync.vertex_sum", 2)  # bincount reads the ids' least and most
     counts = torch.bincount(idx, minlength=n)
     starts = torch.cumsum(counts, 0) - counts
     s_idx = idx[order]
     rank = torch.arange(idx.numel(), device=idx.device) - starts[s_idx]
+    count("host_sync.vertex_sum")
     width = int(counts.max()) if n else 0
     table = vals.new_zeros((n, width, vals.shape[1]))
     table[s_idx, rank] = vals.repeat(3, 1)[order]
@@ -115,13 +118,16 @@ def compute_vertex_normals(v_pos: torch.Tensor, t_pos_idx: torch.Tensor) -> torc
     onto their three vertices in a fixed order (the JAX package's segment
     sum), then normalized (:func:`normalize`): the JAX package's op-by-op
     bits on every device."""
-    i0, i1, i2 = t_pos_idx[:, 0], t_pos_idx[:, 1], t_pos_idx[:, 2]
-    v0, v1, v2 = v_pos[i0], v_pos[i1], v_pos[i2]
-    face_normals = cross(v1 - v0, v2 - v0)  # (T, 3)
-    v_nrm = _sum_to_vertices(face_normals, t_pos_idx, v_pos.shape[0])
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=v_nrm.dtype, device=v_nrm.device)
-    v_nrm = torch.where(dot(v_nrm, v_nrm) > 1e-20, v_nrm, up)
-    return normalize(v_nrm)
+    with annotate("wr::mesh.normals"):
+        i0, i1, i2 = t_pos_idx[:, 0], t_pos_idx[:, 1], t_pos_idx[:, 2]
+        v0, v1, v2 = v_pos[i0], v_pos[i1], v_pos[i2]
+        face_normals = cross(v1 - v0, v2 - v0)  # (T, 3)
+        v_nrm = _sum_to_vertices(face_normals, t_pos_idx, v_pos.shape[0])
+        count("host_sync.vertex_normals")  # a copy from the host
+        up = torch.tensor([0.0, 0.0, 1.0], dtype=v_nrm.dtype,
+                          device=v_nrm.device)
+        v_nrm = torch.where(dot(v_nrm, v_nrm) > 1e-20, v_nrm, up)
+        return normalize(v_nrm)
 
 
 def compute_vertex_tangents(
@@ -148,6 +154,7 @@ def compute_vertex_tangents(
 
     n = v_pos.shape[0]
     tangents = _sum_to_vertices(tang, t_pos_idx, n)
+    count("host_sync.vertex_tangents", 2)  # bincount reads the ids' least and most
     tansum = torch.bincount(t_pos_idx.reshape(-1), minlength=n).to(tang.dtype)
     tangents = tangents / torch.clamp(tansum, min=1.0)[:, None]
     tangents = normalize(tangents)
@@ -193,6 +200,7 @@ def unify_mesh_uv(mesh: TexturedMesh) -> TexturedMesh:
     returned unchanged."""
     if mesh.v_tex is None or mesh.t_tex_idx is None:
         return mesh
+    count("host_sync.unify_uv", 2)
     pos_idx = _host(mesh.t_pos_idx).astype(np.int64)
     tex_idx = _host(mesh.t_tex_idx).astype(np.int64)
     if mesh.v_tex.shape[0] == mesh.v_pos.shape[0] and np.array_equal(
@@ -201,6 +209,7 @@ def unify_mesh_uv(mesh: TexturedMesh) -> TexturedMesh:
     dev = mesh.v_pos.device
     key = pos_idx.reshape(-1) << 32 | tex_idx.reshape(-1)
     _, first, inverse = np.unique(key, return_index=True, return_inverse=True)
+    count("host_sync.unify_uv", 3)  # three copies from the host
     src_pos = torch.from_numpy(pos_idx.reshape(-1)[first]).to(dev)
     src_tex = torch.from_numpy(tex_idx.reshape(-1)[first]).to(dev)
     faces = torch.from_numpy(inverse.reshape(-1, 3).astype(np.int64)).to(dev)

@@ -33,6 +33,7 @@ import torch
 
 from .._device import _I32_MAX, DeviceLike, resolve_device, to_int32_sat
 from ..transforms import mvp_columns
+from ..utils.debug import annotate, count
 from .gbuffer_cuda import BACKGROUND_ID, gbuffer_tiles
 from .rasterize import (
     DEFAULT_CONFIG,
@@ -72,6 +73,7 @@ def _uv_corner_attrs_t(t_total: int, device=None) -> torch.Tensor:
     """Per-corner one-hot attributes (2, 3, T) whose perspective-correct
     interpolation is the nvdiffrast (u, v): the barycentrics of local
     vertices 1 and 2."""
+    count("host_sync.uv_corners")  # a copy from the host
     eye = torch.tensor([[0.0, 1.0, 0.0], [0.0, 0.0, 1.0]], device=device)
     return eye[:, :, None].expand(2, 3, t_total)
 
@@ -430,35 +432,38 @@ def _k1_inputs(pos, tri, v_attr, height, width, config, pos_world=None,
     l_cap = -(-l_cap // c) * c
 
     vmajor = tri.T.reshape(-1)
-    if pos_world is not None and mvp is not None:
-        # World corners gathered once, transformed per view: the same
-        # expression as get_clip_space_position, so the same bits.
-        wc = pos_world[vmajor]
-        v_all = mvp_columns(mvp, wc[:, 0], wc[:, 1], wc[:, 2])
-        v_all = v_all.reshape(bsz, 4, 3, t_total)
-    else:
-        v_all = _clip_corners(pos, tri)
-
-    setup = _triangle_setup_t(v_all, width, height, config.backface_cull)
-    flat = _bin_flat_config(setup, width, bin_height, config,
-                            tile_h=tile_h // sub)
-    if uv_mode:
-        attr_rows = _attr_planes_t(setup, _uv_corner_attrs_t(t_total, pos.device))
-    elif v_attr is not None:
-        am = vmajor if tri_attr is None else tri_attr.T.reshape(-1)
-        a3 = v_attr[am].T.reshape(n_attr, 3, t_total)
-        attr_rows = _attr_planes_t(setup, a3)
-    else:
-        attr_rows = setup.planes12.new_zeros(bsz, 3, t_total + 1)
-    table, flat_ids, chunk_tile, start_chunks, n_chunks = _flat_chunks(
-        setup, attr_rows, flat, k_cap, c, l_cap
-    )
-    rec = torch.gather(
-        table, 2, flat_ids.long()[:, None].expand(bsz, table.shape[1], l_cap)
-    )
-    recs = _flat_chunks_finish(rec, chunk_tile, n_tx, tile_w, tile_h, c, sub)
-    tiny = _tiny_for(setup, attr_rows if n_attr > 0 else None, height, width,
-                     config)
+    with annotate("wr::raster.setup"):
+        if pos_world is not None and mvp is not None:
+            # World corners gathered once, transformed per view: the same
+            # expression as get_clip_space_position, so the same bits.
+            wc = pos_world[vmajor]
+            v_all = mvp_columns(mvp, wc[:, 0], wc[:, 1], wc[:, 2])
+            v_all = v_all.reshape(bsz, 4, 3, t_total)
+        else:
+            v_all = _clip_corners(pos, tri)
+        setup = _triangle_setup_t(v_all, width, height, config.backface_cull)
+    with annotate("wr::raster.bin"):
+        flat = _bin_flat_config(setup, width, bin_height, config,
+                                tile_h=tile_h // sub)
+    with annotate("wr::raster.chunks"):
+        if uv_mode:
+            attr_rows = _attr_planes_t(setup,
+                                       _uv_corner_attrs_t(t_total, pos.device))
+        elif v_attr is not None:
+            am = vmajor if tri_attr is None else tri_attr.T.reshape(-1)
+            a3 = v_attr[am].T.reshape(n_attr, 3, t_total)
+            attr_rows = _attr_planes_t(setup, a3)
+        else:
+            attr_rows = setup.planes12.new_zeros(bsz, 3, t_total + 1)
+        table, flat_ids, chunk_tile, start_chunks, n_chunks = _flat_chunks(
+            setup, attr_rows, flat, k_cap, c, l_cap
+        )
+        rec = torch.gather(
+            table, 2, flat_ids.long()[:, None].expand(bsz, table.shape[1], l_cap)
+        )
+        recs = _flat_chunks_finish(rec, chunk_tile, n_tx, tile_w, tile_h, c, sub)
+        tiny = _tiny_for(setup, attr_rows if n_attr > 0 else None, height,
+                         width, config)
     return ((recs, flat_ids, start_chunks, n_chunks),
             (nv, tile_h, tile_w, n_ty, n_tx, c, sub), tiny)
 
@@ -499,18 +504,19 @@ def _gbuffer_dma_batched(
                                     pos_world=pos_world, mvp=mvp,
                                     tri_attr=tri_attr, uv_mode=uv_mode)
     z, idm, vals = gbuffer_tiles(*inputs, *dims)
-    z = z[:, :height, :width]
-    idm = idm[:, :height, :width]
-    vals = vals[:, :, :height, :width]
-    if tiny is not None:
-        z, idm, vals = _merge_zidvals(z, idm, vals, *tiny)
-    mask = torch.isfinite(z) & (idm < BACKGROUND_ID)
-    z = torch.where(mask, z, 0.0)
-    tri_id = torch.where(mask, idm + 1, 0)
+    with annotate("wr::raster.resolve"):
+        z = z[:, :height, :width]
+        idm = idm[:, :height, :width]
+        vals = vals[:, :, :height, :width]
+        if tiny is not None:
+            z, idm, vals = _merge_zidvals(z, idm, vals, *tiny)
+        mask = torch.isfinite(z) & (idm < BACKGROUND_ID)
+        z = torch.where(mask, z, 0.0)
+        tri_id = torch.where(mask, idm + 1, 0)
 
-    attr = None
-    if v_attr is not None or uv_mode:
-        attr = _attr_from_vals(vals, mask)
+        attr = None
+        if v_attr is not None or uv_mode:
+            attr = _attr_from_vals(vals, mask)
     return mask, z, tri_id, attr
 
 
@@ -534,42 +540,47 @@ def _zattr_inputs(pos, tri, v_attr, height, width, config, tri_attr=None,
     dev = pos.device
     tile_h, tile_w = config.tile_h, config.tile_w
     n_ty, n_tx = -(-height // tile_h), -(-width // tile_w)
-    setup_t = _triangle_setup_t(_clip_corners(pos, tri), width, height,
-                                config.backface_cull, z_dot=True)
-    setup = _classic_layout(setup_t)
-    id_plane = torch.zeros((bsz, t_total + 1, 1, 3), device=dev)
-    id_plane[..., 0, 2] = torch.arange(t_total + 1, dtype=torch.float32,
-                                       device=dev)
-    if uv_mode:
-        n_attr = 2
-        attr_planes = _attr_planes(
-            setup, _uv_corner_attrs_t(t_total, dev).permute(2, 1, 0))
-    elif v_attr is not None:
-        n_attr = v_attr.shape[-1]
-        attr_planes = _attr_planes(setup, v_attr[tri if tri_attr is None
-                                                 else tri_attr])
-    else:
-        n_attr = 0
-        attr_planes = torch.zeros((bsz, t_total + 1, 1, 3), device=dev)
-    all_planes = torch.cat([setup.planes, id_plane, attr_planes], dim=2)
+    with annotate("wr::raster.setup"):
+        setup_t = _triangle_setup_t(_clip_corners(pos, tri), width, height,
+                                    config.backface_cull, z_dot=True)
+        setup = _classic_layout(setup_t)
+        id_plane = torch.zeros((bsz, t_total + 1, 1, 3), device=dev)
+        id_plane[..., 0, 2] = torch.arange(t_total + 1, dtype=torch.float32,
+                                           device=dev)
+        if uv_mode:
+            n_attr = 2
+            attr_planes = _attr_planes(
+                setup, _uv_corner_attrs_t(t_total, dev).permute(2, 1, 0))
+        elif v_attr is not None:
+            n_attr = v_attr.shape[-1]
+            attr_planes = _attr_planes(setup, v_attr[tri if tri_attr is None
+                                                     else tri_attr])
+        else:
+            n_attr = 0
+            attr_planes = torch.zeros((bsz, t_total + 1, 1, 3), device=dev)
+        all_planes = torch.cat([setup.planes, id_plane, attr_planes], dim=2)
     k_cap = min(config.max_tris_per_tile or _auto_cap(t_total, n_ty * n_tx),
                 t_total)
     tiny = None
     if _use_flat(config, t_total, n_ty * n_tx):
-        flat = _bin_flat_config(setup_t, width, height, config)
-        coeffs, counts = _gather_tile_rows_flat(all_planes, setup.valid, flat,
-                                                k_cap, n_tx, tile_w, tile_h)
-        attr_rows = None
-        if n_attr > 0:
-            attr_rows = all_planes[:, :, 5:].reshape(bsz, t_total + 1, -1)
-            attr_rows = attr_rows.transpose(1, 2)
-        tiny = _tiny_for(setup_t, attr_rows, height, width, config)
+        with annotate("wr::raster.bin"):
+            flat = _bin_flat_config(setup_t, width, height, config)
+        with annotate("wr::raster.chunks"):
+            coeffs, counts = _gather_tile_rows_flat(
+                all_planes, setup.valid, flat, k_cap, n_tx, tile_w, tile_h)
+            attr_rows = None
+            if n_attr > 0:
+                attr_rows = all_planes[:, :, 5:].reshape(bsz, t_total + 1, -1)
+                attr_rows = attr_rows.transpose(1, 2)
+            tiny = _tiny_for(setup_t, attr_rows, height, width, config)
     else:
-        ids, counts = _bin_triangles(setup, width, height, tile_h, tile_w,
-                                     k_cap)
-        origins = _tile_origins(n_ty, n_tx, tile_h, tile_w, dev)
-        coeffs = _gather_tile_rows(all_planes, setup.valid, ids, origins)
-        counts = counts.reshape(-1)
+        with annotate("wr::raster.bin"):
+            ids, counts = _bin_triangles(setup, width, height, tile_h, tile_w,
+                                         k_cap)
+        with annotate("wr::raster.chunks"):
+            origins = _tile_origins(n_ty, n_tx, tile_h, tile_w, dev)
+            coeffs = _gather_tile_rows(all_planes, setup.valid, ids, origins)
+            counts = counts.reshape(-1)
     return (coeffs, counts), (n_attr + 1, tile_h, tile_w, config.chunk), tiny
 
 
@@ -588,19 +599,20 @@ def _gbuffer_single(pos, tri, v_attr, height, width, config, tri_attr=None,
                                        uv_mode=uv_mode)
     kernel = zattr_tiles_vpu if config.backend == "vpu_pallas" else zattr_tiles
     z_t, id_t, v_t = kernel(*inputs, *dims)
-    z = _detile(z_t, bsz, n_ty, n_tx, height, width)
-    tid = _detile(id_t, bsz, n_ty, n_tx, height, width)
-    vals = _detile(v_t, bsz, n_ty, n_tx, height, width)
-    if tiny is not None:
-        z_b, id_b, vals_b = tiny
-        z, tid, vals = _merge_zidvals(z, tid, vals, z_b,
-                                      id_b.to(torch.float32), vals_b)
-    mask = torch.isfinite(z) & (tid < BACKGROUND_ID)
-    z = torch.where(mask, z, 0.0)
-    tri_id = torch.where(mask, tid.to(torch.int32) + 1, 0)
-    attr = None
-    if v_attr is not None or uv_mode:
-        attr = _attr_from_vals(vals, mask)
+    with annotate("wr::raster.resolve"):
+        z = _detile(z_t, bsz, n_ty, n_tx, height, width)
+        tid = _detile(id_t, bsz, n_ty, n_tx, height, width)
+        vals = _detile(v_t, bsz, n_ty, n_tx, height, width)
+        if tiny is not None:
+            z_b, id_b, vals_b = tiny
+            z, tid, vals = _merge_zidvals(z, tid, vals, z_b,
+                                          id_b.to(torch.float32), vals_b)
+        mask = torch.isfinite(z) & (tid < BACKGROUND_ID)
+        z = torch.where(mask, z, 0.0)
+        tri_id = torch.where(mask, tid.to(torch.int32) + 1, 0)
+        attr = None
+        if v_attr is not None or uv_mode:
+            attr = _attr_from_vals(vals, mask)
     return mask, z, tri_id, attr
 
 

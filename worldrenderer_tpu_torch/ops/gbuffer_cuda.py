@@ -36,6 +36,7 @@ import ctypes
 
 import torch
 
+from ..utils.debug import annotate, count
 from . import _build
 from .tensor import pixel_centres
 
@@ -44,10 +45,6 @@ BACKGROUND_ID = 2**30
 # Tiles the plain version evaluates together: a (16, c, tile_h*tile_w)
 # step keeps its temporaries at a few tens of MB.
 _PLAIN_TILES_PER_STEP = 16
-
-# Launches of K1 since the count was last set to 0 (the CPU path does not
-# count): lets a run show that its main path went through the kernel.
-launch_count = 0
 
 
 def _check(recs, ids, start_chunks, n_chunks, n_vals, tile_h, n_ty, n_tx, c,
@@ -183,17 +180,24 @@ def gbuffer_tiles(
     sub: int = 1,
 ):
     """K1 on the inputs' device: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns (z, id, vals) as documented above."""
+    version for CPU tensors. Returns (z, id, vals) as documented above.
+    Counts its CUDA launches as ``launch.k1``."""
     _check(recs, ids, start_chunks, n_chunks, n_vals, tile_h, n_ty, n_tx, c,
            sub)
-    if recs.device.type == "cpu":
-        return gbuffer_tiles_plain(
-            recs, ids, start_chunks, n_chunks, n_vals, tile_h, tile_w,
-            n_ty, n_tx, c, sub,
-        )
-    if recs.device.type != "cuda":
-        raise ValueError(f"no K1 route for device {recs.device}")
-    global launch_count
+    with annotate("wr::k1"):
+        if recs.device.type == "cpu":
+            return gbuffer_tiles_plain(
+                recs, ids, start_chunks, n_chunks, n_vals, tile_h, tile_w,
+                n_ty, n_tx, c, sub,
+            )
+        if recs.device.type != "cuda":
+            raise ValueError(f"no K1 route for device {recs.device}")
+        return _launch(recs, ids, start_chunks, n_chunks, n_vals, tile_h,
+                       tile_w, n_ty, n_tx, c, sub)
+
+
+def _launch(recs, ids, start_chunks, n_chunks, n_vals, tile_h, tile_w, n_ty,
+            n_tx, c, sub):
     bsz, n_rows, l_cap = recs.shape
     ph, pw = n_ty * tile_h, n_tx * tile_w
     dev = recs.device
@@ -211,7 +215,7 @@ def gbuffer_tiles(
         bsz, n_rows, l_cap, n_ty * sub, n_tx, tile_h // sub, tile_w, n_vals,
         c, sub,
     )
-    launch_count += 1
+    count("launch.k1")
     return z, idm, vals
 
 

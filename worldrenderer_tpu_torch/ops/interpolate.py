@@ -8,6 +8,7 @@ from typing import Optional, Sequence, Union
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..utils.debug import annotate
 
 __all__ = ["interpolate"]
 
@@ -32,7 +33,12 @@ def interpolate(
     (out, out_da), out_da (B, H, W, 2 * len(diff_attrs)) holding (dA/dX,
     dA/dY) per selected channel: A = a0 + u*(a1-a0) + v*(a2-a0), so dA/dX =
     (a1-a0)*du/dX + (a2-a0)*dv/dX exactly."""
-    dev = resolve_device(device)
+    with annotate("wr::interpolate"):
+        return _interpolate(attr, rast, tri, rast_db, diff_attrs,
+                            resolve_device(device))
+
+
+def _interpolate(attr, rast, tri, rast_db, diff_attrs, dev):
     attr = torch.as_tensor(attr, dtype=torch.float32, device=dev)
     if attr.ndim != 3:
         raise ValueError("attr must be (B, V, C)")

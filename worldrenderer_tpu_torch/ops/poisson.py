@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
+from ..utils.debug import count
 
 __all__ = [
     "poisson_blend",
@@ -90,6 +91,7 @@ def _as_mask(mask: torch.Tensor) -> torch.Tensor:
 
 
 def _jacobi(x, maskf, b, num_iters: int):
+    count("poisson.sweeps", num_iters)
     for _ in range(num_iters):
         x = maskf * (_neighbor_sum(x) + b) * 0.25
     return x
@@ -175,6 +177,7 @@ def poisson_blend_cropped(
     dev = resolve_device(device)
     mask = torch.as_tensor(mask, device=dev)
     tgt = torch.as_tensor(tgt, dtype=torch.float32, device=dev)
+    count("host_sync.poisson_crop", 2)  # the mask read, its crop copied back
     mask_np = mask.detach().cpu().numpy()
     if mask_np.ndim == 3:
         mask_np = mask_np.astype(np.float32).mean(-1) > 0.5

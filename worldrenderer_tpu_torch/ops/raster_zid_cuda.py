@@ -28,6 +28,7 @@ import ctypes
 
 import torch
 
+from ..utils.debug import annotate, count
 from . import _build
 from .tensor import (
     PLAIN_TILES_PER_STEP,
@@ -39,10 +40,6 @@ from .tensor import (
 )
 
 BACKGROUND_SLOT = 2**30
-
-# Launches of K4 since the count was last set to 0 (the CPU path does not
-# count): lets a run show that its main path went through the kernel.
-launch_count = 0
 
 
 def _check(coeffs, ids, counts):
@@ -114,7 +111,6 @@ def raster_zid_tiles_plain(
 
 
 def _launch(coeffs, ids, counts, tile_h, tile_w, chunk):
-    global launch_count
     n_tiles, _, four_k = coeffs.shape
     dev = coeffs.device
     z = torch.empty((n_tiles, tile_h, tile_w), dtype=torch.float32, device=dev)
@@ -128,7 +124,7 @@ def _launch(coeffs, ids, counts, tile_h, tile_w, chunk):
         idmap.data_ptr(), n_tiles, four_k // 4, tile_h, tile_w,
         chunk_size(chunk),
     )
-    launch_count += 1
+    count("launch.k4")
     return z, idmap
 
 
@@ -143,15 +139,16 @@ def raster_zid_tiles(
     """K4 on the inputs' device: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. Returns (z (n_tiles, th, tw) f32, +inf on
     background; idmap (n_tiles, th, tw) i32, ``triangle id + 1``, 0 on
-    background)."""
+    background). Counts its CUDA launches as ``launch.k4``."""
     _check(coeffs, ids, counts)
 
     def plain():
         z, slot = raster_zid_tiles_plain(coeffs, counts, tile_h, tile_w, chunk)
         return z, ids_from_slots(slot, ids)
 
-    return route("raster_zid_tiles", coeffs.device, plain,
-                 lambda: _launch(coeffs, ids, counts, tile_h, tile_w, chunk))
+    with annotate("wr::k4"):
+        return route("raster_zid_tiles", coeffs.device, plain,
+                     lambda: _launch(coeffs, ids, counts, tile_h, tile_w, chunk))
 
 
 def ids_from_slots(slot: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .._device import DeviceLike, resolve_device, to_int32_sat
+from ..utils.debug import annotate, count
 from .raster_zid_cuda import raster_zid_tiles
 from .tensor import BIG_NEG, edge0_pad_block, fma_dot3
 
@@ -206,6 +207,9 @@ def _triangle_setup_t(
     y = (v4[:, 1] * inv_w + 1.0) * (height * 0.5)
     zw = v4[:, 2] * inv_w
 
+    # Each index by a Python list (nxt, prv) copies the list to the card,
+    # and the copy waits for the stream: 19 host syncs in all.
+    count("host_sync.setup_index", 4)
     ax = x[:, nxt]
     ay = y[:, nxt]
     dx = x[:, prv] - ax
@@ -239,6 +243,7 @@ def _triangle_setup_t(
     # from clip coordinates without dividing by w.
     hx = (v4[:, 0] + v4[:, 3]) * (width * 0.5)  # x_pixel * w  (B, 3, T)
     hy = (v4[:, 1] + v4[:, 3]) * (height * 0.5)
+    count("host_sync.setup_index", 12)
     ha = hy[:, nxt] * w[:, prv] - w[:, nxt] * hy[:, prv]  # cofactor rows
     hb = w[:, nxt] * hx[:, prv] - hx[:, nxt] * w[:, prv]
     hg = hx[:, nxt] * hy[:, prv] - hy[:, nxt] * hx[:, prv]
@@ -279,6 +284,7 @@ def _triangle_setup_t(
     # points of the w >= eps_b clipped polygon.
     eps_b = torch.clamp(1e-4 * w.abs().amax(dim=1), min=1e-7)[:, None]
     v_ok = w > eps_b
+    count("host_sync.setup_index", 3)
     wj = w[:, nxt]
     cross_e = (w > eps_b) != (wj > eps_b)
     dw = wj - w
@@ -628,6 +634,12 @@ def _bin_flat(
     return s_tri, s_tile, starts, counts
 
 
+def _read_max(x: torch.Tensor) -> int:
+    """The largest value of ``x``, read on the host."""
+    count("host_sync.binning_stats")
+    return int(x.max())
+
+
 def binning_stats(pos, tri, resolution, config: RasterizerConfig = DEFAULT_CONFIG):
     """Exact per-scene binning-budget diagnostics: the worst view's tier
     counts, live entries and per-tile maximum beside their configured
@@ -700,18 +712,18 @@ def binning_stats(pos, tri, resolution, config: RasterizerConfig = DEFAULT_CONFI
     if config.bin_flat_cap_abs > 0:
         flat_cap = min(flat_cap, config.bin_flat_cap_abs)
     stats = {
-        "n_huge": int(n_huge.max()),
+        "n_huge": _read_max(n_huge),
         "huge_budget": int(config.bin_huge),
-        "n_med": int(n_med.max()),
+        "n_med": _read_max(n_med),
         "med_budget": int(config.bin_med),
-        "live_entries": int(live.max()),
+        "live_entries": _read_max(live),
         "flat_cap": int(min(flat_cap, 2**62)),
-        "max_per_tile": int(max_tile.max()),
+        "max_per_tile": _read_max(max_tile),
         "k_cap": int(k_cap),
-        "n_tiny_1px": int(n_tiny.max()),
-        "n_small_tris": int(n_small.max()),
+        "n_tiny_1px": _read_max(n_tiny),
+        "n_small_tris": _read_max(n_small),
         "small_cap_budget": int(config.bin_small_cap),
-        "n_tiny_cov": int(n_tiny_cov.max()),
+        "n_tiny_cov": _read_max(n_tiny_cov),
         "tiny_cap_budget": int(config.bin_tiny_cap),
     }
     small_cap_on = 0 < config.bin_small_cap < t_total
@@ -1087,13 +1099,16 @@ def _zid_inputs(pos, tri, height, width, config):
     static arguments ``(tile_h, tile_w, chunk)``)."""
     tile_h, tile_w = config.tile_h, config.tile_w
     n_ty, n_tx = -(-height // tile_h), -(-width // tile_w)
-    setup = _triangle_setup(pos, tri, width, height, config.backface_cull)
+    with annotate("wr::raster.setup"):
+        setup = _triangle_setup(pos, tri, width, height, config.backface_cull)
     max_per_tile = (config.max_tris_per_tile
                     or _auto_cap(tri.shape[0], n_ty * n_tx))
-    ids, counts = _bin_triangles(setup, width, height, tile_h, tile_w,
-                                 max_per_tile)
-    origins = _tile_origins(n_ty, n_tx, tile_h, tile_w, pos.device)
-    coeffs = _gather_tile_coeffs(setup, ids, origins)
+    with annotate("wr::raster.bin"):
+        ids, counts = _bin_triangles(setup, width, height, tile_h, tile_w,
+                                     max_per_tile)
+    with annotate("wr::raster.chunks"):
+        origins = _tile_origins(n_ty, n_tx, tile_h, tile_w, pos.device)
+        coeffs = _gather_tile_coeffs(setup, ids, origins)
     inputs = (coeffs, ids.reshape(-1, ids.shape[-1]), counts.reshape(-1))
     return setup, inputs, (tile_h, tile_w, config.chunk)
 
@@ -1107,9 +1122,10 @@ def _rasterize_tiles(pos, tri, height, width, config):
     bsz = pos.shape[0]
     setup, inputs, dims = _zid_inputs(pos, tri, height, width, config)
     z_t, id_t = raster_zid_tiles(*inputs, *dims)
-    zmap = _detile(z_t, bsz, n_ty, n_tx, height, width)
-    idmap = _detile(id_t, bsz, n_ty, n_tx, height, width)
-    return _resolve_uv(setup, idmap, zmap)
+    with annotate("wr::raster.resolve"):
+        zmap = _detile(z_t, bsz, n_ty, n_tx, height, width)
+        idmap = _detile(id_t, bsz, n_ty, n_tx, height, width)
+        return _resolve_uv(setup, idmap, zmap)
 
 
 def _rasterize_batched(pos, tri, height, width, config):
@@ -1129,9 +1145,10 @@ def _rasterize_batched(pos, tri, height, width, config):
         _, z, tri_id, uv = gbuffer(
             pos, tri, None, height, width, config, uv_mode=True
         )
-        return torch.cat(
-            [uv, z[..., None], tri_id.to(torch.float32)[..., None]], dim=-1
-        )
+        with annotate("wr::raster.resolve"):
+            return torch.cat(
+                [uv, z[..., None], tri_id.to(torch.float32)[..., None]], dim=-1
+            )
     return _rasterize_tiles(pos, tri, height, width, config)
 
 

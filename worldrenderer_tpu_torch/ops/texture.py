@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device, to_int32_sat
+from ..utils.debug import annotate, count
 
 __all__ = ["texture", "texture_construct_mip"]
 
@@ -104,6 +105,7 @@ def _unpack_u8_words(words: torch.Tensor, k: int) -> torch.Tensor:
     """Inverse of :func:`_pack_u8_words` on gathered rows: (..., KW) int32
     -> (..., K) float32 in [0, 1] (texel = byte / 255). The arithmetic
     shift's sign bits fall to the byte mask."""
+    count("host_sync.u8_unpack", 2)  # two copies from the host
     shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int32, device=words.device)
     bytes_ = (words[..., None] >> shifts) & 0xFF
     flat = bytes_.reshape(*words.shape[:-1], words.shape[-1] * 4)[..., :k]
@@ -260,6 +262,7 @@ def _cube_padded(tex: torch.Tensor) -> torch.Tensor:
     border cells are distinct, so the indexed write is deterministic on
     every device."""
     b, _, s, _, c = tex.shape
+    count("host_sync.cube_borders", 6)  # six copies from the host
     df, dr, dc, sf, sy, sx = (torch.from_numpy(a).to(tex.device)
                               for a in _cube_border_maps(s))
     padded = tex.new_zeros((b, 6, s + 2, s + 2, c))
@@ -364,7 +367,14 @@ def texture(
         raise ValueError(f"unknown gather_mode {gather_mode!r}")
     if pack_mode not in _PACK_MODES:
         raise ValueError(f"unknown pack_mode {pack_mode!r}")
-    dev = resolve_device(device)
+    with annotate("wr::texture"):
+        return _texture(tex, uv, uv_da, mip_level_bias, mip, filter_mode,
+                        boundary_mode, max_mip_level, pack_mode,
+                        resolve_device(device))
+
+
+def _texture(tex, uv, uv_da, mip_level_bias, mip, filter_mode, boundary_mode,
+             max_mip_level, pack_mode, dev):
     uv = torch.as_tensor(uv, dtype=torch.float32, device=dev)
     tex = _as_texture(tex).to(dev)
     if filter_mode == "auto":
@@ -436,6 +446,7 @@ def _texture_mip(tex, uv, uv_da, mip_level_bias, mip, filter_mode,
     table = torch.cat(tables, dim=1)
 
     def ints(v):
+        count("host_sync.mip_levels")  # a copy from the host
         return torch.tensor(v, dtype=torch.int32, device=dev)
 
     offs_i, tws_i, ths_i, qws_i = ints(offs), ints(tws), ints(ths), ints(qws)

@@ -38,6 +38,7 @@ import ctypes
 
 import torch
 
+from ..utils.debug import annotate, count
 from . import _build
 from .tensor import (
     PLAIN_TILES_PER_STEP,
@@ -50,10 +51,6 @@ from .tensor import (
 )
 
 BACKGROUND_ID = float(2**30)
-
-# Launches of each kernel since its count was last set to 0 (the CPU path
-# does not count): lets a run show that its main path went through them.
-launch_counts = {"zattr_tiles": 0, "zattr_tiles_vpu": 0}
 
 
 def _check(coeffs, counts, n_vals):
@@ -202,27 +199,34 @@ def _launch(name, coeffs, counts, n_vals, tile_h, tile_w, chunk):
         vals.data_ptr(), n_tiles, rk // (5 + n_vals), n_vals, tile_h,
         tile_w, chunk_size(chunk),
     )
-    launch_counts[name] += 1
+    count(f"launch.{_KERNEL[name]}")
     return z, idv, vals
+
+
+# Each kernel's name in its span (wr::k2) and launch counter (launch.k2).
+_KERNEL = {"zattr_tiles": "k2", "zattr_tiles_vpu": "k3"}
 
 
 def _route(name, plain, coeffs, counts, n_vals, tile_h, tile_w, chunk):
     _check(coeffs, counts, n_vals)
     args = (coeffs, counts, n_vals, tile_h, tile_w, chunk)
-    return route(name, coeffs.device, lambda: plain(*args),
-                 lambda: _launch(name, *args))
+    with annotate(f"wr::{_KERNEL[name]}"):
+        return route(name, coeffs.device, lambda: plain(*args),
+                     lambda: _launch(name, *args))
 
 
 def zattr_tiles(coeffs, counts, n_vals, tile_h, tile_w, chunk):
     """K2 on the inputs' device: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns (z, id, vals) as documented above."""
+    version for CPU tensors. Returns (z, id, vals) as documented above.
+    Counts its CUDA launches as ``launch.k2``."""
     return _route("zattr_tiles", zattr_tiles_plain, coeffs, counts, n_vals,
                   tile_h, tile_w, chunk)
 
 
 def zattr_tiles_vpu(coeffs, counts, n_vals, tile_h, tile_w, chunk):
     """K3 on the inputs' device: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns (z, id, vals) as documented above."""
+    version for CPU tensors. Returns (z, id, vals) as documented above.
+    Counts its CUDA launches as ``launch.k3``."""
     return _route("zattr_tiles_vpu", zattr_tiles_vpu_plain, coeffs, counts,
                   n_vals, tile_h, tile_w, chunk)
 

@@ -24,14 +24,12 @@ import torch
 
 from .._device import resolve_device
 from ..ops import _build
+from ..utils.debug import count, counter_totals
 from . import parse_device
 
 _THREADS = 256
 _WARP = 32
 
-# Launches of the kernel since the count was last set to 0 (the CPU path
-# does not count).
-launch_count = 0
 
 def _check(x, starts, n_chunks, n_tiles, c) -> torch.device:
     """One pass over what the kernel takes; returns the inputs' device."""
@@ -96,8 +94,8 @@ def chunk_stream_plain(x, starts, n_chunks, n_tiles: int, th: int, tw: int,
 def chunk_stream(x, starts, n_chunks, n_tiles: int, th: int, tw: int,
                  c: int = 128) -> torch.Tensor:
     """P1 on the inputs' device: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns out (B, n_tiles * th, tw) f32."""
-    global launch_count
+    version for CPU tensors. Returns out (B, n_tiles * th, tw) f32. Counts
+    its CUDA launches as ``launch.p1``."""
     dev = _check(x, starts, n_chunks, n_tiles, c)
     if dev.type == "cpu":
         return chunk_stream_plain(x, starts, n_chunks, n_tiles, th, tw, c)
@@ -107,7 +105,7 @@ def chunk_stream(x, starts, n_chunks, n_tiles: int, th: int, tw: int,
                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6, dev,
                   x.data_ptr(), starts.data_ptr(), n_chunks.data_ptr(),
                   out.data_ptr(), x.shape[0], x.shape[2], n_tiles, th, tw, c)
-    launch_count += 1
+    count("launch.p1")
     return out
 
 
@@ -140,7 +138,8 @@ def main(argv=None) -> int:
                 acc += xr[b, :, s:s + c].sum(dtype=np.float32)
             ref = acc + np.arange(th * tw, dtype=np.float32).reshape(th, tw)
             np.testing.assert_allclose(out[b, i * th:(i + 1) * th], ref, rtol=1e-5)
-    print(f"chunk_stream OK on {dev.type} (launches {launch_count})")
+    print(f"chunk_stream OK on {dev.type} (launches "
+          f"{counter_totals().get('launch.p1', 0)})")
     return 0
 
 

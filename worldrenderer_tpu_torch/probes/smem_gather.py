@@ -22,15 +22,13 @@ import torch
 
 from .._device import resolve_device
 from ..ops import _build
+from ..utils.debug import count
 from . import cuda_ms, parse_device
 
 R = 2048  # rows per gather op (window rows = gathered elements per op)
 T = 400   # repetitions
 LANES = 128
 
-# Launches of the kernel since the count was last set to 0 (the CPU path
-# does not count).
-launch_count = 0
 
 def smem_gather_plain(x: torch.Tensor, idx: torch.Tensor, t_reps: int,
                       axis: int) -> torch.Tensor:
@@ -46,8 +44,7 @@ def smem_gather_plain(x: torch.Tensor, idx: torch.Tensor, t_reps: int,
 def smem_gather(x: torch.Tensor, idx: torch.Tensor, t_reps: int,
                 axis: int) -> torch.Tensor:
     """P3 on the inputs' device: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    global launch_count
+    version for CPU tensors. Counts its CUDA launches as ``launch.p3``."""
     if x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != LANES:
         raise ValueError(f"x must be (R, {LANES}) float32")
     if idx.dtype != torch.int32 or idx.shape != x.shape:
@@ -67,7 +64,7 @@ def smem_gather(x: torch.Tensor, idx: torch.Tensor, t_reps: int,
                   [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3, x.device,
                   x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0],
                   t_reps, axis)
-    launch_count += 1
+    count("launch.p3")
     return out
 
 

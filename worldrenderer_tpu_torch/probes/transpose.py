@@ -20,16 +20,13 @@ import torch
 from .._device import resolve_device
 from ..ops import _build
 from ..ops.tensor import route
+from ..utils.debug import count
 from . import cuda_ms, parse_device
 
 # The TPU probe's shape: 6 views of the 999,699-entry record table, 24 rows.
 V, N, R = 6, 999_699, 24
 REPS = 8
 MAX_R = 64  # rows the kernel's shared-memory tile takes
-
-# Launches of the kernel since the count was last set to 0 (the CPU path
-# does not count).
-launch_count = 0
 
 
 def transpose_plain(x: torch.Tensor) -> torch.Tensor:
@@ -40,7 +37,8 @@ def transpose_plain(x: torch.Tensor) -> torch.Tensor:
 
 def transpose(x: torch.Tensor) -> torch.Tensor:
     """P2 on the input's device: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+    plain version for a CPU tensor. Counts its CUDA launches as
+    ``launch.p2``."""
     if x.dtype != torch.float32 or x.ndim != 3 or not x.is_contiguous():
         raise ValueError("x must be a contiguous (V, R, N) float32 tensor")
     v, r, n = x.shape
@@ -48,7 +46,6 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"R = {r} outside 1..{MAX_R}")
 
     def launch():
-        global launch_count
         y = torch.empty((v * n, r), dtype=torch.float32, device=x.device)
         if y.numel() == 0:
             return y
@@ -56,7 +53,7 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
                       [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                       + [ctypes.c_longlong], x.device,
                       x.data_ptr(), y.data_ptr(), v, r, n)
-        launch_count += 1
+        count("launch.p2")
         return y
 
     return route("P2 transpose", x.device, lambda: transpose_plain(x), launch)

@@ -35,6 +35,7 @@ from .ops.rasterize import DEFAULT_CONFIG, RasterizerConfig, rasterize
 from .ops.texture import texture
 from .transforms import (get_clip_space_position, inverse_f32,
                          transform_points_homo)
+from .utils.debug import annotate, count
 
 __all__ = [
     "RenderOutput",
@@ -111,20 +112,25 @@ def _fd_uv_da(tex_c: torch.Tensor) -> torch.Tensor:
 
 
 def _bg(value, device) -> torch.Tensor:
+    if not (isinstance(value, torch.Tensor)
+            and value.device.type == torch.device(device).type):
+        count("host_sync.background")  # a copy from the host
     return torch.as_tensor(value, dtype=torch.float32, device=device)
 
 
-def _sample_attr(tex_c, mask, tex, *, texture_filter_mode, texture_gather_mode,
-                 texture_pack_mode, attr_background, device):
-    """The texture sampled at the (u, v) image, background where ``mask``
-    is False."""
+def _sample_texture(tex_c, tex, *, texture_filter_mode, texture_gather_mode,
+                    texture_pack_mode, device):
+    """The texture sampled at the (u, v) image."""
     if texture_filter_mode == "auto_mip":
-        fg = texture(tex[None], tex_c, uv_da=_fd_uv_da(tex_c), filter_mode="auto",
-                     pack_mode=texture_pack_mode, device=device)
-    else:
-        fg = texture(tex[None], tex_c, filter_mode=texture_filter_mode,
-                     gather_mode=texture_gather_mode, pack_mode=texture_pack_mode,
-                     device=device)
+        return texture(tex[None], tex_c, uv_da=_fd_uv_da(tex_c), filter_mode="auto",
+                       pack_mode=texture_pack_mode, device=device)
+    return texture(tex[None], tex_c, filter_mode=texture_filter_mode,
+                   gather_mode=texture_gather_mode, pack_mode=texture_pack_mode,
+                   device=device)
+
+
+def _with_background(fg, mask, attr_background):
+    """``fg`` where ``mask`` holds, ``attr_background`` elsewhere."""
     bg = torch.ones_like(fg) * _bg(attr_background, fg.device)
     return torch.where(mask[..., None], fg, bg)
 
@@ -145,8 +151,9 @@ def _depth_channel(gb_pos, mask, cam, depth_normalization_strategy, fg_min):
 
 def _render_fused(mesh, cam, v_pos_clip, height, width, *, render_attr,
                   render_depth, render_normal, render_tangent, antialias_attr,
-                  depth_normalization_strategy, normal_background,
-                  tangent_background, tex_kw, raster_config, device):
+                  depth_normalization_strategy, attr_background,
+                  normal_background, tangent_background, tex_kw, raster_config,
+                  device):
     """Every requested channel rides attribute planes through one fused
     rasterization (normal, tangent and (u, v) over the primary topology);
     world position is the unprojected depth plane."""
@@ -155,9 +162,14 @@ def _render_fused(mesh, cam, v_pos_clip, height, width, *, render_attr,
     # divides by a scalar as a multiply by its reciprocal), made before the
     # rasterizer is queued: a copy between host and card waits for the work
     # queued before it.
-    inv_mvp = inverse_f32(cam.mvp_mtx).to(device)  # (B, 4, 4)
-    px = ((torch.arange(width, dtype=torch.float32) + 0.5) / width * 2.0 - 1.0).to(device)
-    py = ((torch.arange(height, dtype=torch.float32) + 0.5) / height * 2.0 - 1.0).to(device)
+    with annotate("wr::raster.setup"):
+        # a read of the MVPs and three copies from the host
+        count("host_sync.unproject_inputs", 4)
+        inv_mvp = inverse_f32(cam.mvp_mtx).to(device)  # (B, 4, 4)
+        px = ((torch.arange(width, dtype=torch.float32) + 0.5) / width * 2.0
+              - 1.0).to(device)
+        py = ((torch.arange(height, dtype=torch.float32) + 0.5) / height * 2.0
+              - 1.0).to(device)
     nv = mesh.v_pos.shape[0]
     channels, slices, at = [], {}, 0
     if render_normal:
@@ -188,31 +200,38 @@ def _render_fused(mesh, cam, v_pos_clip, height, width, *, render_attr,
         pos_world=mesh.v_pos, mvp=cam.mvp_mtx, device=device,
     )
     mask = out.mask
-
-    # Unproject NDC (x, y, z, 1) through the inverse MVP to world position,
-    # rounded as the JAX package's HIGHEST einsum on the CPU: each product
-    # rounded, then (x m0 + y m1) + (z m2 + m3). Each op is a kernel of its
-    # own, so the card rounds as the CPU does (nothing fuses into an FMA).
-    cols = inv_mvp[:, None, None]  # (B, 1, 1, 4 i, 4 j)
-    world_h = ((px[:, None] * cols[..., 0] + py[:, None, None] * cols[..., 1])
-               + (out.z[..., None] * cols[..., 2] + cols[..., 3]))  # (B, H, W, 4)
-    w = world_h[..., 3:4]
-    w_div = torch.where(w.abs() < 1e-20, 1e-20, w)
-    gb_pos = torch.where(mask[..., None], world_h[..., :3] / w_div, 0.0)
-    res = {"mask": mask, "pos": gb_pos}
-
-    if render_depth:
-        res["depth"] = _depth_channel(gb_pos, mask, cam,
-                                      depth_normalization_strategy, True)
-    for name, bg in (("normal", normal_background),
-                     ("tangent", tangent_background)):
-        if name in slices:
-            a0, a1 = slices[name]
-            res[name] = torch.where(mask[..., None], normalize(out.attr[..., a0:a1]),
-                                    _bg(bg, device))
+    fg = None
     if sample_uv:
         a0, a1 = slices["uv"]
-        gb_rgb = _sample_attr(out.attr[..., a0:a1], mask, **tex_kw)
+        fg = _sample_texture(out.attr[..., a0:a1], **tex_kw)
+
+    with annotate("wr::render.finish"):
+        # Unproject NDC (x, y, z, 1) through the inverse MVP to world
+        # position, rounded as the JAX package's HIGHEST einsum on the CPU:
+        # each product rounded, then (x m0 + y m1) + (z m2 + m3). Each op is
+        # a kernel of its own, so the card rounds as the CPU does (nothing
+        # fuses into an FMA).
+        cols = inv_mvp[:, None, None]  # (B, 1, 1, 4 i, 4 j)
+        world_h = ((px[:, None] * cols[..., 0] + py[:, None, None] * cols[..., 1])
+                   + (out.z[..., None] * cols[..., 2] + cols[..., 3]))  # (B, H, W, 4)
+        w = world_h[..., 3:4]
+        w_div = torch.where(w.abs() < 1e-20, 1e-20, w)
+        gb_pos = torch.where(mask[..., None], world_h[..., :3] / w_div, 0.0)
+        res = {"mask": mask, "pos": gb_pos}
+
+        if render_depth:
+            res["depth"] = _depth_channel(gb_pos, mask, cam,
+                                          depth_normalization_strategy, True)
+        for name, bg in (("normal", normal_background),
+                         ("tangent", tangent_background)):
+            if name in slices:
+                a0, a1 = slices[name]
+                res[name] = torch.where(mask[..., None],
+                                        normalize(out.attr[..., a0:a1]),
+                                        _bg(bg, device))
+        if fg is not None:
+            gb_rgb = _with_background(fg, mask, attr_background)
+    if fg is not None:
         if antialias_attr:
             z = out.z[..., None]
             rast_like = torch.cat([torch.zeros_like(z), torch.zeros_like(z), z,
@@ -225,32 +244,39 @@ def _render_fused(mesh, cam, v_pos_clip, height, width, *, render_attr,
 
 def _render_classic(mesh, cam, v_pos_clip, height, width, *, render_attr,
                     render_depth, render_normal, render_tangent, antialias_attr,
-                    depth_normalization_strategy, normal_background,
-                    tangent_background, tex_kw, raster_config, device):
+                    depth_normalization_strategy, attr_background,
+                    normal_background, tangent_background, tex_kw,
+                    raster_config, device):
     """The nvdiffrast-style branch: ``rasterize``, then every channel by
     ``interpolate`` (uv over ``t_tex_idx``, normals and tangents over the
     stitched topology)."""
     rast = rasterize(v_pos_clip, mesh.t_pos_idx, (height, width),
                      raster_config, device=device)
-    mask = rast[..., 3] > 0
     gb_pos = interpolate(mesh.v_pos[None], rast, mesh.t_pos_idx, device=device)
-    res = {"mask": mask, "pos": gb_pos}
-    if render_depth:
-        res["depth"] = _depth_channel(gb_pos, mask, cam,
-                                      depth_normalization_strategy, False)
+    fg = None
     if render_attr:
         tex_c = interpolate(mesh.v_tex[None], rast, mesh.t_tex_idx, device=device)
-        gb_rgb = _sample_attr(tex_c, mask, **tex_kw)
-        if antialias_attr:
-            gb_rgb = antialias(gb_rgb, rast, v_pos_clip, mesh.t_pos_idx,
-                               device=device)
-        res["attr"] = gb_rgb
+        fg = _sample_texture(tex_c, **tex_kw)
+    shading = {}
     for name, on, vals, bg in (
             ("normal", render_normal, mesh.v_nrm, normal_background),
             ("tangent", render_tangent, mesh.v_tang, tangent_background)):
         if on:
-            g = interpolate(vals[None], rast, mesh.stitched_t_pos_idx, device=device)
+            shading[name] = (interpolate(vals[None], rast, mesh.stitched_t_pos_idx,
+                                         device=device), bg)
+    with annotate("wr::render.finish"):
+        mask = rast[..., 3] > 0
+        res = {"mask": mask, "pos": gb_pos}
+        if render_depth:
+            res["depth"] = _depth_channel(gb_pos, mask, cam,
+                                          depth_normalization_strategy, False)
+        if fg is not None:
+            res["attr"] = _with_background(fg, mask, attr_background)
+        for name, (g, bg) in shading.items():
             res[name] = torch.where(mask[..., None], normalize(g), _bg(bg, device))
+    if fg is not None and antialias_attr:
+        res["attr"] = antialias(res["attr"], rast, v_pos_clip, mesh.t_pos_idx,
+                                device=device)
     return RenderOutput(**res)
 
 
@@ -356,31 +382,33 @@ def render(
         out = render(mesh, cam, height * ssaa, width * ssaa, **kw)
         return RenderOutput(*(_down(x, height, width, ssaa) for x in out))
 
-    if (raster_config.backend == "auto" and render_attr
-            and mesh.v_tex is not None
-            and mesh.v_tex.shape[0] != mesh.v_pos.shape[0]):
-        mesh = _unify_cached(mesh)
-    dev = resolve_device(device)
-    mesh = with_normals(mesh.to(dev), compute_tangents=render_tangent)
-    cam = cam.to(dev)
-    v_pos_clip = get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
-    fused = raster_config.backend in ("auto", "fused_pallas", "fused_xla")
-    branch = _render_fused if fused else _render_classic
-    tex_kw = dict(
-        tex=None if tex is None else tex.to(dev),
-        texture_filter_mode=texture_filter_mode,
-        texture_gather_mode=texture_gather_mode,
-        texture_pack_mode=texture_pack_mode,
-        attr_background=attr_background,
-        device=dev,
-    )
-    return branch(
-        mesh, cam, v_pos_clip, height, width,
-        render_attr=render_attr, render_depth=render_depth,
-        render_normal=render_normal, render_tangent=render_tangent,
-        antialias_attr=antialias_attr,
-        depth_normalization_strategy=depth_normalization_strategy,
-        normal_background=normal_background,
-        tangent_background=tangent_background, tex_kw=tex_kw,
-        raster_config=raster_config, device=dev,
-    )
+    with annotate("wr::render"):
+        with annotate("wr::raster.setup"):
+            if (raster_config.backend == "auto" and render_attr
+                    and mesh.v_tex is not None
+                    and mesh.v_tex.shape[0] != mesh.v_pos.shape[0]):
+                mesh = _unify_cached(mesh)
+            dev = resolve_device(device)
+            mesh = with_normals(mesh.to(dev), compute_tangents=render_tangent)
+            cam = cam.to(dev)
+            v_pos_clip = get_clip_space_position(mesh.v_pos, cam.mvp_mtx)
+        fused = raster_config.backend in ("auto", "fused_pallas", "fused_xla")
+        branch = _render_fused if fused else _render_classic
+        tex_kw = dict(
+            tex=None if tex is None else tex.to(dev),
+            texture_filter_mode=texture_filter_mode,
+            texture_gather_mode=texture_gather_mode,
+            texture_pack_mode=texture_pack_mode,
+            device=dev,
+        )
+        return branch(
+            mesh, cam, v_pos_clip, height, width,
+            render_attr=render_attr, render_depth=render_depth,
+            render_normal=render_normal, render_tangent=render_tangent,
+            antialias_attr=antialias_attr,
+            depth_normalization_strategy=depth_normalization_strategy,
+            attr_background=attr_background,
+            normal_background=normal_background,
+            tangent_background=tangent_background, tex_kw=tex_kw,
+            raster_config=raster_config, device=dev,
+        )

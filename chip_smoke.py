@@ -57,6 +57,11 @@ Phases, one line each; any failure exits nonzero before the last line:
      fused with tangents (K2), classic with antialias_attr (K4), auto_mip;
      [chunk] bench.py:614's config2 with view_chunk=8 against unchunked;
      [ssaa] the headline at ssaa=2; [probes] the entry points of P1-P3;
+     [sample] S1, the bake's bilinear sampler, bit for bit against
+     ``grid_sample_parts``'s plain version on edge-case inputs and on the
+     two calls of a tex4k-shaped bake, its time beside its byte bound, the
+     plain version's and ``F.grid_sample``'s, and its launches per bake
+     (2) and per textured render (0);
   7. slice 7's paths, each with its launch counts read around it and its
      wall seconds: [town] bench.py:395's town (tests/data/town.glb and its
      camera path loaded onto the card, 8 frames at 384x576, the strip
@@ -132,11 +137,13 @@ is the device summary, printed only when every phase passed.
 
     python3 chip_smoke.py --k1-k4 ROOT
     python3 chip_smoke.py --probes ROOT
+    python3 chip_smoke.py --sample
 
 time only the tile kernels K1-K4 (``[k1] balance``, ``[k3] reduction``,
 K2 and K4 as given and with every count 0), or only P1's and P3's wrappers
 and kernels, with the port imported from ROOT, to compare two versions on
-one card (k1_k4_readings, probe_readings).
+one card (k1_k4_readings, probe_readings); or only the [sample] phase
+(sample_readings).
 
     python3 chip_smoke.py --multi-card
 
@@ -250,9 +257,10 @@ def kernel_device_ms(fn, name: str, reps: int = 50):
 
 
 def bits_differ(a, b) -> int:
-    """Elements of two float32 tensors whose bits differ (on the host)."""
-    return int((a.cpu().contiguous().view(torch.int32)
-                != b.cpu().contiguous().view(torch.int32)).sum())
+    """Elements of two float32 tensors whose bits differ (compared on the
+    first one's device)."""
+    return int((a.contiguous().view(torch.int32)
+                != b.to(a.device).contiguous().view(torch.int32)).sum())
 
 
 CAM_FIELDS = ("c2w", "w2c", "proj_mtx", "mvp_mtx", "cam_pos")
@@ -346,6 +354,68 @@ def synthetic_k1_inputs(device, c=128):
         recs[1, :, chunk * c:(chunk + 1) * c] = tie[:, None]
     inputs = tuple(t.to(device) for t in (recs, ids, start, nch))
     return inputs, (n_vals, th, tw, n_ty, n_tx, c)
+
+
+def synthetic_sample_inputs(device):
+    """S1's edge cases, made from a seed: a list of (name, parts, grid),
+    parts as ``grid_sample_parts`` takes them, on ``device``. At N = 6 and
+    N = 1, its first view (9x13 maps, a 7x37 grid: a warp row and a ragged
+    one): a 5-channel fp32 part with NaN and +-inf taps in every view (in
+    the image and on its first row, last column and a corner), a 3-channel
+    'u8' part (k/255 values, some beyond [0, 1]) and a 1-channel fp32 part;
+    NDC at exactly -1 and 1, at x0 = -1 and x0 = W-1 (and y0 likewise), far
+    out of range (+-1e10, +-3e9, +-inf, NaN) and at random in [-1.3, 1.3].
+    Then nine 1-channel parts of alternating modes (two launches) and one
+    27-channel part (outputs written unstaged), at N = 2."""
+    g = torch.Generator().manual_seed(18)
+    h, w, hg, wg = 9, 13, 7, 37
+    nan, inf = float("nan"), float("inf")
+
+    def grid_for(n):
+        grid = (torch.rand((n, hg, wg, 2), generator=g) * 2.6 - 1.3)
+        # x0 = -1 and x0 = W-1 (x = -0.75, W-0.75); likewise y0.
+        lo_x, hi_x = -1.0 - 0.5 / w, (w - 0.25) * 2.0 / w - 1.0
+        lo_y, hi_y = -1.0 - 0.5 / h, (h - 0.25) * 2.0 / h - 1.0
+        special = torch.tensor(
+            [[-1.0, -1.0], [1.0, 1.0], [-1.0, 1.0], [1.0, -1.0],
+             [lo_x, 0.0], [hi_x, 0.0], [0.0, lo_y], [0.0, hi_y],
+             [lo_x, lo_y], [hi_x, hi_y], [1e10, 0.0], [-1e10, 0.0],
+             [0.0, 1e10], [0.0, -1e10], [3e9, -3e9], [-3e9, 3e9],
+             [inf, 0.0], [-inf, 0.0], [0.0, inf], [0.0, -inf],
+             [nan, 0.0], [0.0, nan], [nan, nan], [-1e10, -1e10]])
+        for v in range(n):
+            row = v % hg
+            grid[v, row, :len(special)] = special
+        return grid
+
+    def maps(n):
+        geo = torch.randn((n, h, w, 5), generator=g)
+        geo[:, 3, 4, 0] = nan
+        geo[:, 3, 5, 1] = inf
+        geo[:, 5, 6, 2] = -inf
+        geo[:, 0, :, 3] = nan  # the first row
+        geo[:, :, w - 1, 4] = inf  # the last column
+        geo[:, h - 1, 0] = -inf  # a corner, every channel
+        rgb = torch.randint(0, 256, (n, h, w, 3), generator=g).float() / 255.0
+        rgb[0, 1, 1] = torch.tensor([-0.2, 1.3, 0.5])
+        mask = (torch.rand((n, h, w, 1), generator=g) > 0.4).float()
+        return geo, rgb, mask
+
+    geo, rgb, mask = maps(6)
+    parts = [(geo, "none"), (rgb, "u8"), (mask, "none")]
+    grid = grid_for(6)
+    cases = [("edges_n6", parts, grid),
+             ("edges_n1", [(t[:1].contiguous(), pm) for t, pm in parts],
+              grid[:1].contiguous())]
+    geo, rgb, mask = maps(2)
+    singles = [geo[..., i:i + 1] for i in range(5)] + [
+        rgb[..., i:i + 1] for i in range(3)] + [mask]
+    cases.append(("nine_parts", [(t.contiguous(), "u8" if i % 2 else "none")
+                                 for i, t in enumerate(singles)], grid_for(2)))
+    wide = torch.cat([geo, rgb, mask] * 3, dim=-1)
+    cases.append(("wide_c27", [(wide, "none")], grid_for(2)))
+    return [(name, [(t.to(device), pm) for t, pm in parts], grid.to(device))
+            for name, parts, grid in cases]
 
 
 def synthetic_k1_tie_inputs(device, c=128):
@@ -728,9 +798,11 @@ def zero_sign_check(kernel, plain, dev) -> None:
         f" share of -0 per tile {plain_neg})")
 
 
-# Each tile kernel's launch counter (``utils.debug.count``).
+# Each kernel's launch counter (``utils.debug.count``): the tile kernels
+# K1-K4 and the bake's sampler S1.
 KERNEL_COUNTERS = {"gbuffer_tiles": "launch.k1", "zattr_tiles": "launch.k2",
-                   "zattr_tiles_vpu": "launch.k3", "raster_zid_tiles": "launch.k4"}
+                   "zattr_tiles_vpu": "launch.k3", "raster_zid_tiles": "launch.k4",
+                   "grid_sample_bilinear": "launch.s1"}
 
 
 def reset_counts() -> dict:
@@ -741,13 +813,18 @@ def reset_counts() -> dict:
 
 
 def read_counts(since: dict) -> dict:
-    """Each tile kernel's launches after the totals ``since``."""
+    """Each kernel's launches after the totals ``since``."""
     from worldrenderer_tpu_torch.utils.debug import counter_totals
 
     torch.cuda.synchronize()
     now = counter_totals()
     return {name: now.get(c, 0) - since.get(c, 0)
             for name, c in KERNEL_COUNTERS.items()}
+
+
+def only(**launches) -> dict:
+    """What :func:`read_counts` reads where only ``launches`` ran."""
+    return {name: launches.get(name, 0) for name in KERNEL_COUNTERS}
 
 
 def tile_winners_check(what, got_ids, inputs, n_vals, winners, plus_one) -> None:
@@ -2253,6 +2330,141 @@ def stage_split(fn) -> dict:
     return split
 
 
+# TexturePipeline's rgb keywords, as the benchmark's tex4k cell bakes.
+TEX4K_KW = dict(from_scratch=True, poisson_blending=False,
+                depth_grad_dilation=5, depth_grad_threshold=None,
+                uv_exp_blend_alpha=3, aoi_cos_valid_threshold=-1.0,
+                pos_error_eps=1e-3, iou_rejection_threshold=None,
+                uv_padding=True)
+
+
+def sample_phase(pt, dev, card) -> dict:
+    """[sample]: S1 against ``grid_sample_parts``'s plain version on the
+    card, bit for bit, on :func:`synthetic_sample_inputs`, then on the two
+    calls of a tex4k-shaped bake (``camera_projection`` with the tex4k
+    keywords on [shard]'s scene: 6 views at 768², uv 4096): S1's time
+    beside its byte bound (NDC read, output written and the maps read once
+    over 3.35 TB/s), the plain version's and ``F.grid_sample``'s on the
+    same call (NCHW, not the port's rounding). S1's launches per bake (2)
+    and per textured render (0). Returns S1's kernels-line entry, its
+    launches those of the calls checked here (read around each, the timing
+    loops left out)."""
+    from worldrenderer_tpu_torch.baking import projection as pp
+    from worldrenderer_tpu_torch.baking import uv as pu
+    from worldrenderer_tpu_torch.ops import grid_sample_cuda as gsc
+
+    gs = importlib.import_module("worldrenderer_tpu_torch.ops.grid_sample")
+    entry = {"name": "grid_sample_bilinear", "route": "cuda",
+             "source": "worldrenderer_tpu_torch/csrc/grid_sample_bilinear.cu",
+             "replaces": None, "launches": 0, "max_abs_err": 0.0, "ms": 0.0,
+             "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+             "library_ms": 0.0}
+
+    def against_plain(what, parts, grid, sample, want_launches):
+        since = reset_counts()
+        got = sample(parts, grid)
+        n = read_counts(since)["grid_sample_bilinear"]
+        want = gs.grid_sample_parts_plain(parts, grid)
+        diff = bits_differ(got, want)
+        # |got - want| where the bits differ (NaN if a NaN or inf differs)
+        err = float(torch.where(got.view(torch.int32) == want.view(torch.int32),
+                                0.0, (got - want).abs()).max())
+        if diff or n != want_launches:
+            raise AssertionError(f"S1 {what}: {diff} bits differ (max abs err "
+                                 f"{err}), {n} launches")
+        entry["launches"] += n
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        return got, n, diff
+
+    for name, parts, grid in synthetic_sample_inputs(dev):
+        got, n, diff = against_plain(name, parts, grid, gs.grid_sample_parts,
+                                     -(-len(parts) // gsc.MAX_PARTS))
+        log("sample", f"{name}: {len(parts)} parts, {got.shape[-1]} channels, "
+            f"N {grid.shape[0]}: S1 launches {n}, bits differing from the "
+            f"plain version {diff} (NaN {int(got.isnan().sum())}, -0 "
+            f"{int(((got == 0) & got.signbit()).sum())})")
+
+    mesh, cam, views, cfg = shard_scene(pt, dev)
+    calls = []
+    real = pu.grid_sample_parts
+
+    def recording(parts, grid, device=None):
+        calls.append((list(parts), grid))
+        return real(parts, grid, device=device)
+
+    since = reset_counts()
+    # The geometry call comes from baking/uv.py, the images' through
+    # grid_sample.
+    with mock.patch.object(pu, "grid_sample_parts", recording), \
+            mock.patch.object(gs, "grid_sample_parts", recording):
+        pp.camera_projection(views, mesh, cam, uv_size=SHARD_UV,
+                             raster_config=cfg, **TEX4K_KW)
+    per_bake = read_counts(since)["grid_sample_bilinear"]
+    c4, c4_cam = config4_scene(pt, dev)
+    since = reset_counts()
+    pt.render(c4, c4_cam, 1024, 1024, raster_config=config4_cfg(pt, c4, c4_cam),
+              render_attr=True, device=dev)
+    per_render = read_counts(since)["grid_sample_bilinear"]
+    log("sample", f"S1 launches per tex4k-shaped bake {per_bake}, per "
+        f"textured render {per_render}")
+    if per_bake != len(calls) or per_bake != 2 or per_render:
+        raise AssertionError("S1 is not on the bake's path alone")
+    entry["launches"] += per_bake
+
+    for what, (parts, grid) in zip(("geometry", "images"), calls):
+        parts = [(torch.as_tensor(im, dtype=torch.float32, device=dev)
+                  .contiguous(), pm) for im, pm in parts]
+        grid = grid.contiguous()
+        got = against_plain(f"on the bake's {what}", parts, grid,
+                            gsc.sample_bilinear, 1)[0]
+        s1_ms = cuda_ms(lambda: gsc.sample_bilinear(parts, grid), 20)
+        plain_ms = cuda_ms(lambda: gs.grid_sample_parts_plain(parts, grid), 3)
+        nchw = torch.cat([im for im, _ in parts], -1).permute(0, 3, 1, 2).contiguous()
+        lib_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(
+            nchw, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=False), 20)
+        nbytes = (grid.numel() * 4 + got.numel() * 4
+                  + sum(im.numel() * (1 if pm == "u8" else 4) for im, pm in parts))
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        log("sample", f"bake {what}: maps {tuple(parts[0][0].shape[:3])} x "
+            f"{[im.shape[-1] for im, _ in parts]} {[pm for _, pm in parts]}, "
+            f"grid {tuple(grid.shape[:3])}: S1 bitwise equal to the plain "
+            f"version; S1 {s1_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes "
+            f"({nbytes / 1e9:.3f} GB, {100 * bound_ms / s1_ms:.1f}%), plain "
+            f"{plain_ms:.3f} ms, F.grid_sample {lib_ms:.4f} ms ({card})")
+        for key, v in (("ms", s1_ms), ("plain_ms", plain_ms),
+                       ("bound_ms", bound_ms), ("library_ms", lib_ms)):
+            entry[key] += v
+    return entry
+
+
+def sample_readings() -> int:
+    """``python3 chip_smoke.py --sample``: only the [sample] phase."""
+    global cuda_ms, PEAK_BYTES
+    import worldrenderer_tpu_torch as pt
+    from worldrenderer_tpu_torch.ops import _build
+    from worldrenderer_tpu_torch.probes import cuda_ms
+    from worldrenderer_tpu_torch.utils.roofline import (
+        H100_HBM_BYTES_PER_S as PEAK_BYTES,
+    )
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = smi()
+    log("env", card)
+    t0 = time.perf_counter()
+    logs = _build.build(["grid_sample_bilinear", "gbuffer_tiles",
+                         "raster_zid_tiles"])
+    log("build", f"built in {time.perf_counter() - t0:.2f} s")
+    for line in logs["grid_sample_bilinear"].splitlines():
+        if "registers" in line or "spill" in line:
+            log("build", f"grid_sample_bilinear: {line.strip()}")
+    entry = sample_phase(pt, torch.device("cuda"), card)
+    print(json.dumps(entry))
+    return 0
+
+
 def bake_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     """bench.py:898 bench_projection on the port at full width
     (bake_scene): the timed pieces with uv_blend(do_uv_padding=False) —
@@ -2274,8 +2486,9 @@ def bake_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     since = reset_counts()
     bake()
     counts = read_counts(since)
-    # the atlas pass and the view renders, one K1 launch each
-    if counts["gbuffer_tiles"] != 2 or sum(counts.values()) != 2:
+    # the atlas pass and the view renders, one K1 launch each; the
+    # geometry and the images gathers, one S1 launch each
+    if counts != only(gbuffer_tiles=2, grid_sample_bilinear=2):
         raise AssertionError(f"bake: launches {counts}")
     bake_ms = cuda_ms(bake, 5)
     split = stage_split(bake)
@@ -2299,17 +2512,19 @@ def bake_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     kw = dict(uv_size=BAKE_UV, poisson_blending=False, raster_config=cfg)
     since = reset_counts()
     out = pp.camera_projection(views, mesh, cam=cam, device=dev, **kw)
-    launches = read_counts(since)["gbuffer_tiles"]
+    e2e = read_counts(since)
+    launches = e2e["gbuffer_tiles"]
     e2e_ms = cuda_ms(lambda: pp.camera_projection(views, mesh, cam=cam,
                                                   device=dev, **kw), 3)
     baked = int(out.uv_proj_mask.sum())
     log("bake", f"camera_projection (poisson_blending=False): "
-        f"{e2e_ms / 1e3:.4f} s on the card, K1 launches {launches}, "
+        f"{e2e_ms / 1e3:.4f} s on the card, launches {e2e}, "
         f"{baked} texels baked")
-    if not (launches == 2 and baked > 0.2 * BAKE_UV ** 2
-            and torch.isfinite(out.uv_proj).all()):
+    if not (e2e == only(gbuffer_tiles=2, grid_sample_bilinear=2)
+            and baked > 0.2 * BAKE_UV ** 2 and torch.isfinite(out.uv_proj).all()):
         raise AssertionError("bake: camera_projection on the card failed")
-    return {"gbuffer_tiles": counts["gbuffer_tiles"] + launches}
+    return {name: counts[name] + e2e[name]
+            for name in ("gbuffer_tiles", "grid_sample_bilinear")}
 
 
 def bake_full_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
@@ -2335,7 +2550,7 @@ def bake_full_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     since = reset_counts()
     pre, geo, attr, out = bake()
     counts = read_counts(since)
-    if counts["gbuffer_tiles"] != 2 or sum(counts.values()) != 2:
+    if counts != only(gbuffer_tiles=2, grid_sample_bilinear=2):
         raise AssertionError(f"bake_full: launches {counts}")
     if not torch.isfinite(out.uv_attr_blend).all():
         raise AssertionError("bake_full: the texture is not finite")
@@ -2378,7 +2593,7 @@ def bake_full_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
         f"texels with other bits elsewhere, {bits_differ(got, ref)} in all")
     if not (err <= 1e-4 and outside == 0 and torch.isfinite(got).all()):
         raise AssertionError("bake_full: the card disagrees with the CPU")
-    return {"gbuffer_tiles": counts["gbuffer_tiles"]}
+    return {name: counts[name] for name in ("gbuffer_tiles", "grid_sample_bilinear")}
 
 
 def rel_err(got, want) -> float:
@@ -2825,7 +3040,9 @@ def warp_phase(pt, gb, gc, zc, rk, dev, card, s10) -> dict:
     with mock.patch.object(pp, "uv_precompute", keep_pre):
         out = pp.camera_projection(src, mesh, cam=cam, device=dev, **kw)
     counts = read_counts(since)
-    if counts["gbuffer_tiles"] != 3 or sum(counts.values()) != 3:
+    # the warp's target render, the atlas and the view maps; S1 on the two
+    # gathers (the warp's fit samples under autograd: the plain version)
+    if counts != only(gbuffer_tiles=3, grid_sample_bilinear=2):
         raise AssertionError(f"warp: camera_projection launches {counts}")
     bake_ms = cuda_ms(lambda: pp.camera_projection(src, mesh, cam=cam,
                                                    device=dev, **kw), 2)
@@ -2862,7 +3079,7 @@ def warp_phase(pt, gb, gc, zc, rk, dev, card, s10) -> dict:
             and tex_err <= 1e-4 and both.float().mean() > 0.2
             and torch.isfinite(out.uv_proj).all()):
         raise AssertionError("warp: the card's bake disagrees with the CPU's")
-    return {"gbuffer_tiles": counts["gbuffer_tiles"]}
+    return {name: counts[name] for name in ("gbuffer_tiles", "grid_sample_bilinear")}
 
 
 def paint_phase(pt, gb, gc, zc, rk, dev, card, s10) -> dict:
@@ -2898,8 +3115,8 @@ def paint_phase(pt, gb, gc, zc, rk, dev, card, s10) -> dict:
     counts = read_counts(since)
     rounds = len(painter.history)
     # a round: the score render, the two 1024² renders, the projection's
-    # atlas and view maps
-    if counts["gbuffer_tiles"] != 5 * rounds or sum(counts.values()) != 5 * rounds:
+    # atlas and view maps (K1), the projection's two gathers (S1)
+    if counts != only(gbuffer_tiles=5 * rounds, grid_sample_bilinear=2 * rounds):
         raise AssertionError(f"paint: launches {counts} in {rounds} rounds")
     scores = [float(h["view_scores"].max()) for h in painter.history]
     log("paint", f"SmartPainter over {int(hole.sum())} uncovered of "
@@ -2964,7 +3181,7 @@ def paint_phase(pt, gb, gc, zc, rk, dev, card, s10) -> dict:
     if not (got_view == ref["best_view"] and flips <= 1e-4 * chart_n
             and tex_err <= 1e-4):
         raise AssertionError("paint: the card's round disagrees with the CPU's")
-    return {"gbuffer_tiles": counts["gbuffer_tiles"]}
+    return {name: counts[name] for name in ("gbuffer_tiles", "grid_sample_bilinear")}
 
 # ---- Slice 11: the application --------------------------------------------
 
@@ -3249,7 +3466,8 @@ def app_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
                                   announce=True),
                               reps=1, warm=False, host_ops=False) / 1e3
     counts = read_counts(since)
-    if counts["gbuffer_tiles"] < 1:
+    # K1 at least once; S1 on a bake's two gathers at least
+    if counts["gbuffer_tiles"] < 1 or counts["grid_sample_bilinear"] < 2:
         raise AssertionError(f"app: project_and_render launched {counts}")
 
     parts = {}
@@ -3322,7 +3540,7 @@ def app_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
     if not (flips.sum() <= 1e-4 * fg and rgb_bad == 0 and nrm_bad == 0
             and depth_err <= 1 and tex_bad <= 1e-4 * tex_n and fg > 0):
         raise AssertionError("app: the card's run disagrees with the CPU's")
-    return {"gbuffer_tiles": counts["gbuffer_tiles"]}
+    return {name: counts[name] for name in ("gbuffer_tiles", "grid_sample_bilinear")}
 
 
 def texpipe_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
@@ -3363,7 +3581,8 @@ def texpipe_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
         call_s = log_profile("texpipe", "TexturePipeline (device only)", call,
                              reps=1, warm=False, host_ops=False) / 1e3
     counts = read_counts(since)
-    if counts["gbuffer_tiles"] < 1:
+    # K1 at least once; S1 on a bake's two gathers at least
+    if counts["gbuffer_tiles"] < 1 or counts["grid_sample_bilinear"] < 2:
         raise AssertionError(f"texpipe: TexturePipeline launched {counts}")
     (out, tp), = outs
     spans = ", ".join(f"{name} {end - t:.3f}"
@@ -3404,7 +3623,7 @@ def texpipe_phase(pt, gb, gc, zc, rk, dev, card, s11) -> dict:
     if not (rgb_bad <= 1e-4 * n_chart and len(tex_bad) == 2
             and max(tex_bad) <= 1e-4 * n_tex and n_chart > 0.2 * n_tex):
         raise AssertionError("texpipe: the card's run disagrees with the CPU's")
-    return {"gbuffer_tiles": counts["gbuffer_tiles"]}
+    return {name: counts[name] for name in ("gbuffer_tiles", "grid_sample_bilinear")}
 
 
 SHARD_UV, SHARD_RES, SHARD_CHUNKS = 4096, 768, 8
@@ -3446,14 +3665,14 @@ def peak_gib(fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
 
 
-def shard_bake_check(pt, gb, gc, zc, rk, dev, card) -> int:
+def shard_bake_check(pt, gb, gc, zc, rk, dev, card) -> dict:
     """The texel-sharded bake at bench_bake4k's width on a mesh of the one
     card, texel_chunks SHARD_CHUNKS: K1's launches in one counted call
     (its inputs kept and each shape held bitwise to the plain version),
     seconds per bake warm, peak memory at SHARD_CHUNKS chunks against 1,
     kernels and idle share from one traced call, and the result against
     the port's unsharded camera_projection on the card (mask and values bit
-    for bit). Returns K1's launches."""
+    for bit). Returns K1's and S1's launches."""
     from worldrenderer_tpu_torch.baking import projection as pp
     from worldrenderer_tpu_torch.parallel import make_device_mesh
 
@@ -3471,8 +3690,9 @@ def shard_bake_check(pt, gb, gc, zc, rk, dev, card) -> int:
     with k1_inputs_kept(gb, kept):
         out = bake()
     counts = read_counts(since)
-    # the atlas and the view renders, once each on the one device
-    if counts["gbuffer_tiles"] != 2 or sum(counts.values()) != 2:
+    # the atlas and the view renders, once each on the one device; the two
+    # gathers of each texel chunk
+    if counts != only(gbuffer_tiles=2, grid_sample_bilinear=2 * SHARD_CHUNKS):
         raise AssertionError(f"shard: the sharded bake launched {counts}")
     bake_ms = cuda_ms(bake, 1)
     peak8 = peak_gib(bake)
@@ -3480,7 +3700,8 @@ def shard_bake_check(pt, gb, gc, zc, rk, dev, card) -> int:
     log("shard", f"sharded camera_projection, uv {SHARD_UV}², 6 views at "
         f"{SHARD_RES}², {mesh.num_faces} triangles, mesh {dict(dm.shape)}, "
         f"texel_chunks {SHARD_CHUNKS}: {bake_ms / 1e3:.4f} s per bake warm "
-        f"({card}); K1 launches {counts['gbuffer_tiles']}; peak memory "
+        f"({card}); K1 launches {counts['gbuffer_tiles']}, S1 "
+        f"{counts['grid_sample_bilinear']}; peak memory "
         f"{peak8:.3f} GiB at texel_chunks {SHARD_CHUNKS} against {peak1:.3f} "
         f"GiB at 1 (torch.cuda.max_memory_allocated above the inputs)")
     log_profile("shard", "one sharded bake (device only)", bake, reps=1,
@@ -3497,7 +3718,7 @@ def shard_bake_check(pt, gb, gc, zc, rk, dev, card) -> int:
         f"differ {bits}")
     if mask_diff or any(bits.values()) or baked < 0.2 * SHARD_UV ** 2:
         raise AssertionError("shard: the sharded bake differs from the unsharded")
-    return counts["gbuffer_tiles"]
+    return {name: counts[name] for name in ("gbuffer_tiles", "grid_sample_bilinear")}
 
 
 def shard_sweep_checks(pt, gc, zc, rk, dev, card) -> int:
@@ -3618,7 +3839,8 @@ def shard_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
     launches per kernel."""
     from worldrenderer_tpu_torch.utils import roofline, validate
 
-    k1 = shard_bake_check(pt, gb, gc, zc, rk, dev, card)
+    baked = shard_bake_check(pt, gb, gc, zc, rk, dev, card)
+    k1 = baked["gbuffer_tiles"]
     k1 += shard_sweep_checks(pt, gc, zc, rk, dev, card)
     k1 += shard_fit_check(pt, gc, zc, rk, dev, card)
 
@@ -3653,7 +3875,8 @@ def shard_phase(pt, gb, gc, zc, rk, dev, card) -> dict:
         f"{mfu['useful_gop_per_frame']:.3f} G ({100 * mfu['util_useful']:.1f}%), "
         f"floor ratio {mfu['floor_ratio']:.2f}")
     return {"gbuffer_tiles": k1 + counts["gbuffer_tiles"],
-            "zattr_tiles_vpu": counts["zattr_tiles_vpu"]}
+            "zattr_tiles_vpu": counts["zattr_tiles_vpu"],
+            "grid_sample_bilinear": baked["grid_sample_bilinear"]}
 
 
 MULTI_CHUNKS = 2
@@ -3921,6 +4144,8 @@ def main() -> int:
         return probe_readings(Path(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--cpu-refs":
         return cpu_references(sys.argv[2])
+    if len(sys.argv) == 2 and sys.argv[1] == "--sample":
+        return sample_readings()
     if len(sys.argv) == 2 and sys.argv[1] == "--multi-card":
         return multi_card_readings()
     if len(sys.argv) == 6 and sys.argv[1] == "--fit-rank":
@@ -3985,7 +4210,8 @@ def run_all(pt, meshproc, _build, gb, gc, rk, pr, zc, dev, early,
 
     t0 = time.perf_counter()
     libs = ["gbuffer_tiles", "raster_zid_tiles", "zattr_tiles",
-            "probe_chunk_stream", "probe_transpose", "probe_smem_gather"]
+            "grid_sample_bilinear", "probe_chunk_stream", "probe_transpose",
+            "probe_smem_gather"]
     # The host's meshproc library (g++), and the same without FMA
     # contraction for [lod], build beside the kernels (nvcc).
     pool = concurrent.futures.ThreadPoolExecutor(2)
@@ -4225,11 +4451,17 @@ def run_phases(pt, gb, pr, gc, zc, rk, dev, card, late, mark, t_start,
     mark("ssaa")
     for name, n in probes_phase().items():
         probe_entries[name]["launches"] = n
+    t_phase = time.perf_counter()
+    s1_entry = sample_phase(pt, dev, card)
+    log("sample", f"phase ran {time.perf_counter() - t_phase:.1f} s")
+    mark("sample")
     for phase, call in late.items():
         t_phase = time.perf_counter()
         for name, n in call().items():
             if name == "gbuffer_tiles":
                 launches += n
+            elif name == "grid_sample_bilinear":
+                s1_entry["launches"] += n
             else:
                 tile_launches[name] += n
         log(phase, f"phase ran {time.perf_counter() - t_phase:.1f} s")
@@ -4250,7 +4482,8 @@ def run_phases(pt, gb, pr, gc, zc, rk, dev, card, late, mark, t_start,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }] + list(tile_entries.values()) + list(probe_entries.values())}))
+    }] + list(tile_entries.values()) + [s1_entry]
+        + list(probe_entries.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

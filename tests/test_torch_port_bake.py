@@ -12,6 +12,7 @@ XLA's FMA contractions and vertex-count-dependent GEMM order move the
 view renders' positions by up to 3e-2 (ROADMAP queue 3), while op by op
 the two packages evaluate the same fp32 expressions."""
 
+import functools
 import sys
 from unittest import mock
 
@@ -34,9 +35,12 @@ import worldrenderer_tpu_torch as pt
 import worldrenderer_tpu_torch.ops.grid_sample  # noqa: F401  (sys.modules below)
 from worldrenderer_tpu_torch.baking import projection as pproj
 from worldrenderer_tpu_torch.baking import uv as pu
+from worldrenderer_tpu_torch.ops import grid_sample_cuda as pgs_cuda
 from worldrenderer_tpu_torch.ops import image as pimg
 from worldrenderer_tpu_torch.ops import poisson as ppo
+from worldrenderer_tpu_torch.utils.debug import counter_totals
 
+from chip_smoke import synthetic_sample_inputs
 from test_torch_kernel_designs import one_torch_thread  # noqa: F401  (fixture)
 
 jproj = sys.modules["worldrenderer_tpu.baking.projection"]
@@ -186,6 +190,93 @@ def test_grid_sample_parts_match_jax():
     assert ours.shape == (2, 9, 13, 8)
     _close(ours, ref, 1e-6)
     _close(ours[..., 3:7], pgs.grid_sample(frames, grid, device="cpu"), 1e-6)
+
+
+# S1's edge cases (``chip_smoke.py`` holds S1 to the plain version on them
+# on the card): NaN / inf taps, NDC at +-1, x0 = -1 and W-1, far-out-of-range
+# and NaN coordinates, C = 1, 3, 5, a 'u8' part beside fp32 ones, N = 1, 6.
+SAMPLE_CASES = {name: (parts, grid)
+                for name, parts, grid in synthetic_sample_inputs("cpu")}
+
+
+def _same_values_and_zero_signs(ours, ref):
+    ours, ref = _np(ours), _np(ref)
+    np.testing.assert_array_equal(ours, ref)
+    live = ~np.isnan(ref)
+    np.testing.assert_array_equal(np.signbit(ours[live]), np.signbit(ref[live]))
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_edges_n6():
+    parts, grid = SAMPLE_CASES["edges_n6"]
+    return _np(j_grid_sample_parts([(jnp.asarray(_np(a)), m) for a, m in parts],
+                                   jnp.asarray(_np(grid))))
+
+
+@pytest.mark.parametrize("name", ["edges_n1", "edges_n6"])
+def test_grid_sample_parts_edges_match_jax(name):
+    """The plain version (the CPU's route) on S1's edge inputs equals the
+    JAX package's value for value, zeros' signs included. The N = 1 case is
+    the first view of the N = 6 one, and views are sampled apart, so one
+    JAX run (op by op, about 6 s) serves both."""
+    parts, grid = SAMPLE_CASES[name]
+    ours = pgs.grid_sample_parts(parts, grid, device="cpu")
+    ref = _jax_edges_n6()[:grid.shape[0]]
+    assert ours.shape == (*grid.shape[:3], 9)
+    assert np.isnan(_np(ours)).any() and (_np(ours) == 0).any()
+    _same_values_and_zero_signs(ours, ref)
+
+
+def test_grid_sample_parts_cpu_and_grad_take_the_plain_path():
+    """CPU tensors, and inputs autograd records, take the plain version and
+    launch nothing; the gradient flows through it."""
+    parts, grid = SAMPLE_CASES["edges_n1"]
+    before = counter_totals().get("launch.s1", 0)
+    got = pgs.grid_sample_parts(parts, grid, device="cpu")
+    assert torch.equal(got.view(torch.int32),
+                       pgs.grid_sample_parts_plain(parts, grid).view(torch.int32))
+    image = parts[2][0].clone().requires_grad_()
+    coords = (torch.rand((1, 4, 5, 2), generator=torch.Generator().manual_seed(2))
+              * 1.6 - 0.8).requires_grad_()
+    out = pgs.grid_sample_parts([(image, "none")], coords, device="cpu")
+    out.sum().backward()
+    assert image.grad.abs().sum() > 0 and coords.grad is not None
+    assert counter_totals().get("launch.s1", 0) == before
+
+
+def test_s1_route_by_device_and_grad():
+    """S1 on CUDA unless autograd records the call; never off CUDA."""
+    plain = torch.zeros(2)
+    tracked = torch.zeros(2, requires_grad=True)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert pgs._takes_s1(cuda, [plain, plain])
+    assert not pgs._takes_s1(cuda, [plain, tracked])
+    with torch.no_grad():
+        assert pgs._takes_s1(cuda, [plain, tracked])
+    assert not pgs._takes_s1(cpu, [plain])
+
+
+@pytest.mark.parametrize("fault", ["noncontiguous_part", "noncontiguous_grid",
+                                   "float64_part", "int_grid", "grid_shape",
+                                   "unknown_mode", "cpu_tensors"])
+def test_s1_wrapper_rejects(fault):
+    """S1's wrapper checks its inputs before it builds or launches."""
+    image, grid = torch.zeros((1, 4, 5, 3)), torch.zeros((1, 2, 3, 2))
+    parts, error = [(image, "none")], ValueError
+    if fault == "noncontiguous_part":
+        parts = [(torch.zeros((1, 5, 4, 3)).transpose(1, 2), "none")]
+    elif fault == "noncontiguous_grid":
+        grid = torch.zeros((1, 3, 2, 2)).transpose(1, 2)
+    elif fault == "float64_part":
+        parts, error = [(image.double(), "none")], TypeError
+    elif fault == "int_grid":
+        grid, error = grid.int(), TypeError
+    elif fault == "grid_shape":
+        grid = torch.zeros((1, 2, 3, 3))
+    elif fault == "unknown_mode":
+        parts = [(image, "u16")]
+    with pytest.raises(error):
+        pgs_cuda.sample_bilinear(parts, grid)
 
 
 def _poisson_inputs():

@@ -3,7 +3,7 @@
 and their CUDA kernels (``gbuffer_cuda``, ``zattr_cuda``,
 ``raster_zid_cuda``, built by ``_build``), texture sampling (``texture``),
 silhouette antialiasing (``antialias``), grid sampling
-(``grid_sample``), image ops (``image``), Poisson blending
+(``grid_sample``, its CUDA kernel in ``grid_sample_cuda``), image ops (``image``), Poisson blending
 (``poisson``) and the tensor helpers (``tensor``)."""
 
 from .antialias import antialias

@@ -9,10 +9,12 @@ the JAX package's expressions, so the port's CPU and card runs give the
 JAX package's values; ``F.grid_sample`` rounds its weights otherwise, and a
 texel near a validity threshold would flip.
 
-Bilinear sampling reads one row of a quad table per output pixel (see
-``ops/texture.py``); :func:`grid_sample_parts` puts several images' quad
-tables side by side, fp32 columns and byte-packed ``'u8'`` words, so they
-ride one row gather.
+Bilinear sampling of CUDA tensors runs kernel S1 (``grid_sample_cuda``),
+which reads the taps straight from the images. The plain version,
+:func:`grid_sample_parts_plain`, reads one row of a quad table per output
+pixel (see ``ops/texture.py``), several images' quad tables side by side,
+fp32 columns and byte-packed ``'u8'`` words, so they ride one row gather;
+it serves the CPU and autograd, and S1 equals it bit for bit.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ from typing import Sequence, Tuple
 import torch
 
 from .._device import DeviceLike, resolve_device, to_int32_sat
+from .grid_sample_cuda import sample_bilinear
 from .texture import _pack_u8_words, _quantize_u8, _unpack_u8_words
 
-__all__ = ["grid_sample", "grid_sample_parts"]
+__all__ = ["grid_sample", "grid_sample_parts", "grid_sample_parts_plain"]
 
 
 def _pixel_coords(grid: torch.Tensor, h: int, w: int):
@@ -92,14 +95,13 @@ def grid_sample_parts(
     grid: torch.Tensor,
     device: DeviceLike = None,
 ) -> torch.Tensor:
-    """Bilinear :func:`grid_sample` of several same-size images with ONE
-    row gather: every part's quad row in one table row (fp32 columns for
-    ``'none'`` parts, byte-packed int32 words for ``'u8'`` parts), split
-    after the gather. Each channel equals a separate call's bit for bit.
-    Returns the parts' samples concatenated in the parts' order.
+    """Bilinear :func:`grid_sample` of several same-size images in one
+    pass. Each channel equals a separate call's bit for bit. Returns the
+    parts' samples concatenated in the parts' order.
 
     parts: ((N, H, W, C_i) image, pack_mode) with shared (N, H, W);
-    grid: (N, Hg, Wg, 2) NDC."""
+    grid: (N, Hg, Wg, 2) NDC. Kernel S1 on the card; the plain version on
+    the CPU and where autograd records the call."""
     if not parts:
         raise ValueError("grid_sample_parts needs at least one part")
     dev = resolve_device(device)
@@ -115,6 +117,33 @@ def grid_sample_parts(
         if pm not in ("none", "u8"):
             raise ValueError(f"unknown pack_mode {pm!r}")
     grid = torch.as_tensor(grid, dtype=torch.float32, device=dev)
+    if _takes_s1(dev, [*images, grid]):
+        return sample_bilinear(
+            [(im.contiguous(), pm) for im, pm in zip(images, modes)],
+            grid.contiguous())
+    return grid_sample_parts_plain(list(zip(images, modes)), grid)
+
+
+def _takes_s1(device: torch.device, tensors: Sequence[torch.Tensor]) -> bool:
+    """Whether :func:`grid_sample_parts` runs S1: on CUDA, unless autograd
+    records the call (S1 has no backward)."""
+    return device.type == "cuda" and not (
+        torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+
+
+def grid_sample_parts_plain(
+    parts: Sequence[Tuple[torch.Tensor, str]],
+    grid: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`grid_sample_parts` in plain PyTorch, on the inputs' device
+    (float32 images with shared (N, H, W) and modes checked): every part's
+    quad row in one table row (fp32 columns for ``'none'`` parts,
+    byte-packed int32 words for ``'u8'`` parts), ONE row gather, split
+    after the gather."""
+    images = [im for im, _ in parts]
+    modes = [pm for _, pm in parts]
+    n, h, w = images[0].shape[:3]
+    dev = grid.device
     x, y = _pixel_coords(grid, h, w)
     x0 = to_int32_sat(torch.floor(x))
     y0 = to_int32_sat(torch.floor(y))
@@ -144,10 +173,13 @@ def grid_sample_parts(
     in_x1 = ((x0 + 1 >= 0) & (x0 + 1 < w))[..., None]
     in_y0 = ((y0 >= 0) & (y0 < h))[..., None]
     in_y1 = ((y0 + 1 >= 0) & (y0 + 1 < h))[..., None]
-    w00 = (1.0 - fx) * (1.0 - fy) * (in_x0 & in_y0)
-    w01 = fx * (1.0 - fy) * (in_x1 & in_y0)
-    w10 = (1.0 - fx) * fy * (in_x0 & in_y1)
-    w11 = fx * fy * (in_x1 & in_y1)
+    # A tap's weight is +0 where its flag is off: the JAX package's
+    # product with the flag compiles to a select (XLA's simplifier), so at
+    # +-inf or saturated coordinates its weights read +0, not NaN or -0.
+    w00 = torch.where(in_x0 & in_y0, (1.0 - fx) * (1.0 - fy), 0.0)
+    w01 = torch.where(in_x1 & in_y0, fx * (1.0 - fy), 0.0)
+    w10 = torch.where(in_x0 & in_y1, (1.0 - fx) * fy, 0.0)
+    w11 = torch.where(in_x1 & in_y1, fx * fy, 0.0)
 
     group_out = {}
     at = 0
